@@ -6,20 +6,27 @@ Phases (any failure exits non-zero and prints no result line):
  1. require a CUDA device; print the card's name and power limit;
  2. build the hand-written kernels from libiop_tpu_torch/csrc (one nvcc per
     source, in parallel) and the native pow solver; print the build seconds;
- 3. hold each kernel against its plain PyTorch twin on the card at the main
-    path's shapes (exact equality) and time both with CUDA events;
- 4. golden: the Aurora proof of the reference's golden configuration, proven
-    on the card, hashes to the JAX package's pinned sha256; it verifies, and
-    a flipped byte or a wrong primary input is rejected;
+ 3. hold each kernel K1-K7 (and K3 on salted zk leaves) against its plain
+    PyTorch twin on the card at the main paths' shapes (exact equality) and
+    time both with CUDA events;
+ 4. golden: the Aurora proofs of the reference's golden configuration,
+    non-zk and zk (Merkle salts from a seeded stream), proven on the card,
+    hash to the JAX package's sha256s; they verify, and a flipped byte or a
+    wrong primary input is rejected;
  5. main path: Aurora prove + verify at 2^log_n constraints with bench.py's
-    configuration; every kernel's launch count over that run must be > 0;
- 6. print the kernels JSON line, then the device JSON line last.
+    configuration, non-zk; every kernel's launch count over that run must
+    be > 0 and no plain twin may run on a CUDA tensor;
+ 6. zk main path: the same configuration with make_zk=True, the same checks;
+    then K8 against its twin on the DAG of its fri_combine_inputs call;
+ 7. print the kernels JSON line, then the device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
+import contextlib
 import hashlib
 import json
 import os
+import secrets
 import subprocess
 import sys
 import time
@@ -32,12 +39,22 @@ sys.path.insert(0, REPO)
 
 from libiop_tpu_torch import kernels  # noqa: E402
 from libiop_tpu_torch.bcs.common import BCSTranscript  # noqa: E402
-from libiop_tpu_torch.fields.limbs import mul_plain  # noqa: E402
+from libiop_tpu_torch.fields import limbs  # noqa: E402
+from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,  # noqa: E402
+                                           mont_reduce_wide_plain, mul_plain)
 from libiop_tpu_torch.fields.prime import edwards_fr  # noqa: E402
+from libiop_tpu_torch.iop import runtime  # noqa: E402
 from libiop_tpu_torch.kernels import build  # noqa: E402
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows,  # noqa: E402
                                               blake2b_rows_plain, merkle_heap)
+from libiop_tpu_torch.kernels.ell_matvec import (ell_matvec,  # noqa: E402
+                                                 ell_matvec_plain)
+from libiop_tpu_torch.kernels.field_addsub import (field_addsub,  # noqa: E402
+                                                   field_addsub_plain)
 from libiop_tpu_torch.kernels.fri_fold import fri_fold, fri_fold_plain  # noqa: E402
+from libiop_tpu_torch.kernels.fused_dag import (ADD, MUL, SUB,  # noqa: E402
+                                                fused_dag, fused_dag_plain)
+from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain  # noqa: E402
 from libiop_tpu_torch.relations.examples import generate_r1cs_example  # noqa: E402
@@ -49,6 +66,11 @@ from libiop_tpu_torch.utils.profiling import PROFILER  # noqa: E402
 #: sha256 of the golden transcript, pinned by the JAX package's own test
 #: (tests/test_golden_transcript.py:22)
 GOLDEN_SHA256 = "ca51f9c12bb0f3383b696ad92bd3b7af9a13acd29463a760d5dd61d7d7db17ce"
+#: sha256 of the golden configuration with make_zk=True, prover rng
+#: default_rng(0) and secrets.token_bytes drawn from default_rng(7), as the
+#: JAX package's prover gives it (tests/test_torch_zk_aurora.py)
+GOLDEN_ZK_SHA256 = \
+    "02e9bb70ba8ffbde03f75e379618274cdd4565c4256bb52ea9d1bd3b70e70f55"
 
 # Least-time model of the H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3;
 # 32-bit integer instructions at 64 lanes per SM x 132 SMs x 1.98 GHz boost.
@@ -106,12 +128,15 @@ def random_elems(F, n, rng, dev):
     return F.from_ints(F.random_ints(n, rng), dev)
 
 
-def check_kernels(F, dev, rng):
-    """Phase 3: each kernel against its twin at main-path shapes."""
+def check_kernels(F, dev, rng, cs_main):
+    """Phase 3: K1-K7 against their twins at the main paths' shapes for
+    cs_main, the main path's constraint system of 2^k constraints (k capped
+    at 16): non-zk codewords of 2^(k+2), zk codewords of 2^(k+4)."""
     rows = []
+    k = min(cs_main.num_constraints.bit_length() - 1, 16)
 
-    # K1: Montgomery product on (12, 2^19)
-    n = 1 << 19
+    # K1: Montgomery product on (12, 2^(k+3))
+    n = 1 << (k + 3)
     a, b = random_elems(F, n, rng, dev), random_elems(F, n, rng, dev)
     got, want = mont_mul(F, a, b), mul_plain(F, a, b)
     err = max_abs_err(got, want)
@@ -123,11 +148,11 @@ def check_kernels(F, dev, rng):
         ms=time_ms(lambda: mont_mul(F, a, b)),
         plain_ms=time_ms(lambda: mul_plain(F, a, b)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape="(12, 2^19) x (12, 2^19)"))
+        shape=f"(12, 2^{k + 3}) x (12, 2^{k + 3})"))
 
-    # K2: the 19 butterfly stages of one NTT of size 2^19
+    # K2: the k+3 butterfly stages of one NTT of size 2^(k+3)
     from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
-    dim = 19
+    dim = k + 3
     N = 1 << dim
     dom = MultiplicativeCoset(F, dim, shift=F.multiplicative_generator)
     W = dom.generator_powers(dev)
@@ -161,11 +186,11 @@ def check_kernels(F, dev, rng):
         ms=time_ms(net_kernel, setup=lambda: buf.copy_(x0)),
         plain_ms=time_ms(net_plain),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape="19 stages over N = 2^19 (one NTT)"))
+        shape=f"{dim} stages over N = 2^{dim} (one NTT)"))
 
-    # K3: round-1 leaves at 2^16 constraints (2^17 leaves of 4 oracles x
+    # K3: round-1 leaves of the non-zk path (2^(k+1) leaves of 4 oracles x
     # coset 2 x 6 words = 192 bytes, 32-byte digests) plus the full tree
-    nl, nw, db = 1 << 17, 48, 32
+    nl, nw, db = 1 << (k + 1), 48, 32
     words = torch.from_numpy(rng.integers(0, 1 << 32, size=(nl, nw),
                                           dtype=np.uint64).astype(np.uint32)
                              .view(np.int32)).to(dev)
@@ -192,9 +217,9 @@ def check_kernels(F, dev, rng):
         replaces="libiop_tpu/bcs/device_blake2b.py:198", max_abs_err=err,
         ms=time_ms(commit_kernel), plain_ms=time_ms(commit_plain),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape="2^17 leaves x 192 B + 17 tree levels"))
+        shape=f"2^{k + 1} leaves x 192 B + {k + 1} tree levels"))
 
-    # K4: fold with eta = 2 on N = 2^19
+    # K4: fold with eta = 2 on N = 2^(k+3)
     from libiop_tpu_torch.protocols.fri import _fold_rows
     from libiop_tpu_torch.algebra.domains import _powers_doubling
     eta, c = 2, 4
@@ -218,7 +243,101 @@ def check_kernels(F, dev, rng):
         plain_ms=time_ms(lambda: fri_fold_plain(F, evals, rows_t, winv, xpow,
                                                 c)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape="eta = 2, N = 2^19 -> 2^17"))
+        shape=f"eta = 2, N = 2^{dim} -> 2^{dim - 2}"))
+    # K5: add with both operands full, sub against a broadcast scalar and
+    # neg, on (12, 2^(k+4)) (a zk codeword)
+    n = 1 << (k + 4)
+    a, b = random_elems(F, n, rng, dev), random_elems(F, n, rng, dev)
+    s = random_elems(F, 1, rng, dev)
+    a[:, 0] = 0
+    errs = []
+    for op, x, y in (("add", a, b), ("sub", a, s), ("neg", a, None)):
+        errs.append(max_abs_err(field_addsub(F, op, x, y),
+                                field_addsub_plain(F, op, x, y)))
+        log(f"  field_addsub {op} (12, 2^{k + 4}) x "
+            f"{'-' if y is None else tuple(y.shape)} err {errs[-1]}")
+    bms, by = bound_ms(3 * ELEM_BYTES * n, ADDSUB_OPS * n)
+    rows.append(dict(
+        name="field_addsub", route="cuda",
+        source="libiop_tpu_torch/csrc/field_addsub.cu",
+        replaces="libiop_tpu/fields/prime.py:236", max_abs_err=max(errs),
+        ms=time_ms(lambda: field_addsub(F, "add", a, b)),
+        plain_ms=time_ms(lambda: field_addsub_plain(F, "add", a, b)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"add (12, 2^{k + 4}) + (12, 2^{k + 4})"))
+
+    # K6: mont_reduce_wide of a (26, n) product accumulator, and
+    # lazy_sum_reduce of a (12, n) lazy sum of 4096 values per column
+    wide = torch.zeros((2 * F.L + 2, n), dtype=torch.int64, device=dev)
+    for i in range(F.L):
+        wide[i:i + F.L] += a[i].to(torch.int64) * b.to(torch.int64)
+    wide_err = max_abs_err(lazy_reduce(F, wide, False),
+                           mont_reduce_wide_plain(F, wide))
+    log(f"  lazy_reduce mont_reduce_wide (26, 2^{k + 4}) err {wide_err}")
+    lazy = torch.randint(0, 4096 * 65535, (F.L, n), dtype=torch.int64,
+                         device=dev)
+    err = max(wide_err, max_abs_err(lazy_reduce(F, lazy, True),
+                                    lazy_sum_reduce_plain(F, lazy)))
+    # carry pass (3 ops a row) and one product-sized reduction per column
+    bms, by = bound_ms(8 * F.L * n + ELEM_BYTES * n,
+                       (3 * F.L + MONT_OPS) * n)
+    rows.append(dict(
+        name="lazy_reduce", route="cuda",
+        source="libiop_tpu_torch/csrc/lazy_reduce.cu",
+        replaces="libiop_tpu/fields/prime.py:402", max_abs_err=err,
+        ms=time_ms(lambda: lazy_reduce(F, lazy, True)),
+        plain_ms=time_ms(lambda: lazy_sum_reduce_plain(F, lazy)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"lazy_sum_reduce (12, 2^{k + 4}) int64"))
+
+    # K7: the main path's A z, B z, C z and A^T y
+    A, B, C = cs_main.matrices()
+    z = random_elems(F, cs_main.num_variables + 1, rng, dev)
+    y = random_elems(F, cs_main.num_constraints, rng, dev)
+    calls = []
+    for M, seg, src, S, vec in ((A, A.rows, A.cols, A.num_rows, z),
+                                (B, B.rows, B.cols, B.num_rows, z),
+                                (C, C.rows, C.cols, C.num_rows, z),
+                                (A, A.cols, A.rows, A.num_cols, y)):
+        entry, src_flat, K = M._ell_plan(seg, src, S)
+        calls.append((torch.from_numpy(np.ascontiguousarray(np.concatenate(
+            [M.vals, np.zeros((F.L, 1), np.int32)], axis=1))).to(dev),
+            torch.from_numpy(entry).to(dev), torch.from_numpy(src_flat).to(dev),
+            vec, K))
+    err = max(max_abs_err(ell_matvec(F, *c), ell_matvec_plain(F, *c))
+              for c in calls)
+    # each entry: its value and two 32-bit indices; each product reads its
+    # vector and writes its output once
+    nnz = sum(len(M.rows) for M in (A, B, C, A))
+    io = cs_main.num_constraints + cs_main.num_variables + 1
+    bms, by = bound_ms(nnz * (ELEM_BYTES + 8) + 4 * io * ELEM_BYTES,
+                       nnz * (MONT_OPS + ADDSUB_OPS))
+    rows.append(dict(
+        name="ell_matvec", route="cuda",
+        source="libiop_tpu_torch/csrc/ell_matvec.cu",
+        replaces="libiop_tpu/relations/sparse.py:87", max_abs_err=err,
+        ms=time_ms(lambda: [ell_matvec(F, *c) for c in calls]),
+        plain_ms=time_ms(lambda: [ell_matvec_plain(F, *c) for c in calls]),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"A z, B z, C z, A^T y at 2^{k} (nnz {nnz})"))
+
+    # K3 on the zk round-0 leaves: 2^(k+2) leaves of 6 oracles x coset 4
+    # x 6 words and a 32-byte salt (152 words, 608 bytes), 32-byte digests
+    nl, nw = 1 << (k + 2), 6 * 4 * 6 + 8
+    words = torch.from_numpy(rng.integers(0, 1 << 32, size=(nl, nw),
+                                          dtype=np.uint64).astype(np.uint32)
+                             .view(np.int32)).to(dev)
+    err = max_abs_err(blake2b_rows(words, 4 * nw, db, 0x00),
+                      blake2b_rows_plain(words, 4 * nw, db, 0x00))
+    ms = time_ms(lambda: blake2b_rows(words, 4 * nw, db, 0x00))
+    plain = time_ms(lambda: blake2b_rows_plain(words, 4 * nw, db, 0x00),
+                    reps=1, warmup=0)
+    log(f"  blake2b_rows salted zk leaves 2^{k + 2} x 608 B err {err} kernel "
+        f"{ms:.4f} ms plain {plain:.2f} ms")
+    if err:
+        raise AssertionError("blake2b_rows (salted leaves) disagrees with "
+                             "its twin")
+
     for r in rows:
         log(f"  {r['name']:13s} {r['shape']:40s} err {r['max_abs_err']} "
             f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.2f} ms  "
@@ -253,94 +372,242 @@ def device_time_breakdown(fn, top=12):
             "top_kernels": [(name[:80], n, t) for name, (n, t) in ranked]}
 
 
-def golden(F, dev):
-    """Phase 4: the golden configuration proven on the card."""
-    cs, primary, aux = generate_r1cs_example(
-        F, 16, 3, 15, np.random.default_rng(424242))
-    params = AuroraSnarkParams(
+def _golden_params(make_zk):
+    return AuroraSnarkParams(
         security_parameter=32, RS_extra_dimensions=2,
-        fri_localization_parameter=1, make_zk=False, pow_bits=0,
+        fri_localization_parameter=1, make_zk=make_zk, pow_bits=0,
         override_fri_queries=3, override_fri_interactive_repetitions=1,
         override_ldt_instances=1)
-    blob = aurora_snark_prover(cs, primary, aux, params,
-                               rng=np.random.default_rng(0),
-                               device=dev).serialize()
-    digest = hashlib.sha256(blob).hexdigest()
-    log(f"  golden sha256 {digest}")
-    if digest != GOLDEN_SHA256:
-        raise AssertionError("golden transcript differs from the JAX package's")
-    if not aurora_snark_verifier(cs, primary, BCSTranscript.deserialize(blob),
-                                 params, device=dev):
-        raise AssertionError("golden proof rejected")
-    bad = bytearray(blob)
-    bad[32] ^= 1  # first byte of the first Merkle root
-    if aurora_snark_verifier(cs, primary, BCSTranscript.deserialize(bytes(bad)),
-                             params, device=dev):
-        raise AssertionError("tampered golden proof accepted")
-    wrong = [(primary[0] + 1) % F.p] + list(primary[1:])
-    if aurora_snark_verifier(cs, wrong, BCSTranscript.deserialize(blob),
-                             params, device=dev):
-        raise AssertionError("golden proof accepted for a wrong primary input")
-    log("  verify True; flipped byte rejected; wrong primary input rejected")
 
 
-def main_path(F, dev, log_n):
-    """Phase 5: Aurora at 2^log_n constraints, bench.py's configuration."""
-    n = 1 << log_n
+@contextlib.contextmanager
+def seeded_salts(seed=7):
+    """secrets.token_bytes drawn from default_rng(seed), as the zk golden
+    test patches it for both packages."""
+    real = secrets.token_bytes
+    secrets.token_bytes = np.random.default_rng(seed).bytes
+    try:
+        yield
+    finally:
+        secrets.token_bytes = real
+
+
+def host_time_breakdown(fn, top=15):
+    """Run fn under cProfile: wall seconds (inflated by the profiler) and the
+    functions with the most host time of their own."""
+    import cProfile
+    import pstats
+    prof = cProfile.Profile()
     t0 = time.time()
-    cs, primary, aux = generate_r1cs_example(F, n, 15, n - 1,
-                                             np.random.default_rng(0))
-    setup_s = time.time() - t0
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.time() - t0
+    stats = pstats.Stats(prof).stats
+    ranked = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return {"wall_s": wall, "top_own_s": [
+        (f"{os.path.basename(f)}:{line}:{name}", ncalls, round(own, 4),
+         round(cum, 4))
+        for (f, line, name), (_, ncalls, own, cum, _) in ranked]}
+
+
+def golden(F, dev):
+    """Phase 4: the golden configuration proven on the card, non-zk and zk."""
+    cs, primary, aux = generate_r1cs_example(
+        F, 16, 3, 15, np.random.default_rng(424242))
+    for make_zk, want in ((False, GOLDEN_SHA256), (True, GOLDEN_ZK_SHA256)):
+        params = _golden_params(make_zk)
+        with seeded_salts():
+            blob = aurora_snark_prover(cs, primary, aux, params,
+                                       rng=np.random.default_rng(0),
+                                       device=dev).serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        tag = "zk " if make_zk else ""
+        log(f"  golden {tag}sha256 {digest}")
+        if digest != want:
+            raise AssertionError(f"golden {tag}transcript differs from the "
+                                 "JAX package's")
+        if not aurora_snark_verifier(cs, primary,
+                                     BCSTranscript.deserialize(blob), params,
+                                     device=dev):
+            raise AssertionError(f"golden {tag}proof rejected")
+        bad = bytearray(blob)
+        bad[32] ^= 1  # first byte of the first Merkle root
+        if aurora_snark_verifier(cs, primary,
+                                 BCSTranscript.deserialize(bytes(bad)),
+                                 params, device=dev):
+            raise AssertionError(f"tampered golden {tag}proof accepted")
+        wrong = [(primary[0] + 1) % F.p] + list(primary[1:])
+        if aurora_snark_verifier(cs, wrong, BCSTranscript.deserialize(blob),
+                                 params, device=dev):
+            raise AssertionError(f"golden {tag}proof accepted for a wrong "
+                                 "primary input")
+        log(f"  {tag}verify True; flipped byte rejected; wrong primary input "
+            "rejected")
+
+
+@contextlib.contextmanager
+def no_twin_on_cuda():
+    """Make every plain twin raise if it is handed a CUDA tensor: on the
+    card the main path must run the kernels only."""
+    mods = [limbs] + [sys.modules[m] for m in sorted(sys.modules)
+                      if m.startswith("libiop_tpu_torch.kernels.")]
+    saved = []
+
+    def on_cuda(a):
+        if isinstance(a, (list, tuple)):
+            return any(on_cuda(x) for x in a)
+        return isinstance(a, torch.Tensor) and a.is_cuda
+
+    def guard(name, fn):
+        def checked(*args, **kw):
+            if on_cuda(args):
+                raise AssertionError(f"plain twin {name} ran on a CUDA tensor")
+            return fn(*args, **kw)
+        return checked
+
+    for mod in mods:
+        for name, fn in list(vars(mod).items()):
+            if name.endswith("_plain") and callable(fn):
+                saved.append((mod, name, fn))
+                setattr(mod, name, guard(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def fused_calls(record):
+    """Count the runtime's fused-DAG calls and keep the one with the most
+    tape ops (tape, inputs, scalars) in record."""
+    real = runtime.fused_dag
+
+    def spy(F, tape, inputs, scalars):
+        record["calls"] = record.get("calls", 0) + 1
+        best = record.get("tape")
+        if best is None or len(tape.ops) > len(best[0].ops):
+            record["tape"] = (tape, list(inputs), list(scalars))
+        return real(F, tape, inputs, scalars)
+
+    runtime.fused_dag = spy
+    try:
+        yield
+    finally:
+        runtime.fused_dag = real
+
+
+def main_path(F, dev, cs, primary, aux, make_zk):
+    """Phases 5 and 6: Aurora at bench.py's configuration."""
+    label = "zk_main_path" if make_zk else "main_path"
     params = AuroraSnarkParams(security_parameter=128, RS_extra_dimensions=2,
-                               fri_localization_parameter=2, make_zk=False,
+                               fri_localization_parameter=2, make_zk=make_zk,
                                pow_bits=20)
+    rng = (lambda: np.random.default_rng(0)) if make_zk else (lambda: None)
     PROFILER.sync = True
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launch_counts()
-    PROFILER.records.clear()
-    t0 = time.time()
-    proof = aurora_snark_prover(cs, primary, aux, params, device=dev)
-    torch.cuda.synchronize()
-    prove_s = time.time() - t0
-    launches_prove = dict(kernels.LAUNCHES)
-    profile = PROFILER.report()
-    blob = proof.serialize()
-    t0 = time.time()
-    ok = aurora_snark_verifier(cs, primary, BCSTranscript.deserialize(blob),
-                               params, device=dev)
-    torch.cuda.synchronize()
-    verify_s = time.time() - t0
-    launches = dict(kernels.LAUNCHES)
+    record = {}
+    with no_twin_on_cuda():
+        kernels.reset_launch_counts()
+        PROFILER.records.clear()
+        t0 = time.time()
+        with fused_calls(record):
+            proof = aurora_snark_prover(cs, primary, aux, params, rng=rng(),
+                                        device=dev)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+        launches_prove = dict(kernels.LAUNCHES)
+        profile = PROFILER.report()
+        blob = proof.serialize()
+        t0 = time.time()
+        ok = aurora_snark_verifier(cs, primary,
+                                   BCSTranscript.deserialize(blob), params,
+                                   device=dev)
+        torch.cuda.synchronize()
+        verify_s = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    bad = bytearray(blob)
+    bad[32] ^= 1  # first byte of the first Merkle root
+    tampered_ok = aurora_snark_verifier(
+        cs, primary, BCSTranscript.deserialize(bytes(bad)), params,
+        device=dev)
     # a second prove of the same system (tables and kernels already warm),
     # without block syncs, then a third under torch.profiler for the device
     # time by kernel
     PROFILER.sync = False
     t0 = time.time()
-    blob2 = aurora_snark_prover(cs, primary, aux, params,
+    blob2 = aurora_snark_prover(cs, primary, aux, params, rng=rng(),
                                 device=dev).serialize()
     torch.cuda.synchronize()
     warm_prove_s = time.time() - t0
     device_time = device_time_breakdown(
-        lambda: aurora_snark_prover(cs, primary, aux, params, device=dev))
-    log(json.dumps({"stage": "main_path", "log_n": log_n, "setup_s": setup_s,
+        lambda: aurora_snark_prover(cs, primary, aux, params, rng=rng(),
+                                    device=dev))
+    host_time = host_time_breakdown(
+        lambda: aurora_snark_prover(cs, primary, aux, params, rng=rng(),
+                                    device=dev))
+    log(json.dumps({"stage": label, "log_n": int(cs.num_constraints).bit_length() - 1,
                     "prove_s": prove_s, "warm_prove_s": warm_prove_s,
                     "verify_s": verify_s, "verified": ok,
+                    "flipped_byte_rejected": not tampered_ok,
                     "argument_bytes": len(blob),
                     "same_bytes_second_prove": blob2 == blob,
                     "max_memory_allocated": peak, "launches": launches,
                     "launches_prove": launches_prove,
+                    "fused_calls_prove": record.get("calls", 0),
                     "warm_prove_device_time": device_time,
+                    "warm_prove_host_time": host_time,
                     "profile": [(d, nm, round(s, 6)) for d, nm, s in profile]}))
     if not ok:
-        raise AssertionError("main-path proof rejected")
-    if blob2 != blob:
-        raise AssertionError("two proves of one system gave different bytes")
+        raise AssertionError(f"{label} proof rejected")
+    if tampered_ok:
+        raise AssertionError(f"{label}: tampered proof accepted")
+    # zk proofs draw fresh salts, so only the non-zk bytes repeat
+    if (blob2 == blob) == make_zk:
+        raise AssertionError(f"{label}: second prove gave "
+                             f"{'the same' if make_zk else 'different'} bytes")
+    if launches_prove["fused_dag"] != record.get("calls"):
+        raise AssertionError(f"{label}: {record.get('calls')} fused DAG calls "
+                             f"but {launches_prove['fused_dag']} K8 launches")
     for name, count in launches.items():
         if count <= 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
-    return launches
+            raise AssertionError(f"kernel {name} was not launched on {label}")
+    return launches, launches_prove, record
+
+
+def check_fused_dag(F, record):
+    """K8 against its twin on the largest DAG of the zk main path's prove
+    (the fri_combine_inputs combination)."""
+    tape, inputs, scalars = record["tape"]
+    got = fused_dag(F, tape, inputs, scalars)
+    want = fused_dag_plain(F, tape, inputs, scalars)
+    err = max(max_abs_err(g, w) for g, w in zip(got, want))
+    n = inputs[0].shape[1]
+    bms, by = bound_ms(ELEM_BYTES * n * (tape.n_inputs + tape.n_outputs),
+                       n * (tape.count(MUL) * MONT_OPS
+                            + (tape.count(ADD) + tape.count(SUB))
+                            * ADDSUB_OPS))
+    row = dict(
+        name="fused_dag", route="cuda",
+        source="libiop_tpu_torch/csrc/fused_dag.cu",
+        replaces="libiop_tpu/iop/runtime.py:366", max_abs_err=err,
+        ms=time_ms(lambda: fused_dag(F, tape, inputs, scalars)),
+        plain_ms=time_ms(lambda: fused_dag_plain(F, tape, inputs, scalars),
+                         reps=3),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=(f"{len(tape.ops)} ops ({tape.count(MUL)} mul), "
+               f"{tape.n_inputs} inputs, {tape.n_regs} regs, n = 2^"
+               f"{n.bit_length() - 1}"))
+    log(f"  {row['name']:13s} {row['shape']:40s} err {err} kernel "
+        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  bound "
+        f"{bms:.4f} ms ({by})")
+    if err:
+        raise AssertionError("fused_dag disagrees with its plain twin")
+    return row
 
 
 def main():
@@ -366,19 +633,31 @@ def main():
     log(f"  build_s {time.time() - t0:.1f}")
 
     F = edwards_fr()
+    n = 1 << args.log_n
+    t0 = time.time()
+    cs, primary, aux = generate_r1cs_example(F, n, 15, n - 1,
+                                             np.random.default_rng(0))
+    log(f"  example 2^{args.log_n} setup_s {time.time() - t0:.1f}")
     rng = np.random.default_rng(2024)
     log("phase 3: kernels against their plain twins")
-    rows = check_kernels(F, dev, rng)
+    rows = check_kernels(F, dev, rng, cs)
 
-    log("phase 4: golden transcript on the card")
+    log("phase 4: golden transcripts on the card")
     golden(F, dev)
 
     log(f"phase 5: Aurora main path at 2^{args.log_n} constraints")
-    launches = main_path(F, dev, args.log_n)
+    launches, _, _ = main_path(F, dev, cs, primary, aux, make_zk=False)
 
-    log("phase 6: results")
+    log(f"phase 6: zk Aurora main path at 2^{args.log_n} constraints")
+    zk_launches, _, record = main_path(F, dev, cs, primary, aux, make_zk=True)
+    rows.append(check_fused_dag(F, record))
+    del record
+
+    log("phase 7: results")
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = zk_launches[r["name"]]
+        r["launches_by_path"] = {"aurora": launches[r["name"]],
+                                 "aurora_zk": zk_launches[r["name"]]}
         r.pop("shape")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -1,6 +1,6 @@
 """Shared BCS machinery: parameters, the device leaf pipeline, leaf
 serialization and the transcript (port of libiop_tpu/bcs/common.py,
-multiplicative non-zk BLAKE2b branch).
+multiplicative BLAKE2b branch, zk salts included).
 
 Leaf layout (bcs_common.tcc:646-676): with coset size c over a domain of size
 N, leaf j holds, for each oracle in ascending id order, the values at
@@ -41,8 +41,9 @@ class BCSParameters:
 
 class DeviceLeafBlocks:
     """Leaf blocks kept on the device as (num_leaves, nw) int32 word rows
-    (little-endian byte streams); bytes reach the host only for the queried
-    leaves."""
+    (little-endian byte streams whose first block_len bytes are the block;
+    a zk row carries its salt after it); bytes reach the host only for the
+    queried leaves."""
 
     __slots__ = ("words", "block_len")
 
@@ -78,17 +79,28 @@ def leaf_words_layout(packed: torch.Tensor, num_leaves: int, coset_size: int):
 
 
 def device_leaf_digests(F, oracle_evals_list, domain, coset_size: int,
-                        digest_bytes: int):
+                        digest_bytes: int, salts: Optional[bytes] = None):
     """Device leaf pipeline: canonicalize + pack -> per-leaf word layout ->
     tagged BLAKE2b leaf digests (K3, tag 0x00) -> every Merkle level (K3,
-    tag 0x01).  Returns (root bytes, heap (2n, dw) tensor, DeviceLeafBlocks)."""
+    tag 0x01).  Returns (root bytes, heap (2n, dw) tensor, DeviceLeafBlocks).
+
+    zk trees (merkle_tree.tcc:37-67): ``salts`` is the host's secret blob of
+    num_leaves * salt_bytes (word-aligned).  It is shipped to the device
+    once and written after each leaf's words, so K3 hashes
+    0x00 || block || salt, the stream the host verifier hashes."""
     assert oracle_evals_list and digest_bytes % 4 == 0 and F.L % 2 == 0
     N = domain.num_elements()
     num_leaves = N // coset_size
     packed = pack_canonical_words(F, torch.stack(oracle_evals_list, dim=1))
     words = leaf_words_layout(packed, num_leaves, coset_size)
     block_len = 4 * words.shape[1]
-    digests = blake2b_rows(words, block_len, digest_bytes, 0x00)
+    if salts is not None:
+        sb = len(salts) // num_leaves
+        assert sb % 4 == 0 and len(salts) == num_leaves * sb, len(salts)
+        salt_words = torch.from_numpy(np.frombuffer(salts, "<i4").reshape(
+            num_leaves, sb // 4).copy()).to(words.device)
+        words = torch.cat([words, salt_words], dim=1)
+    digests = blake2b_rows(words, 4 * words.shape[1], digest_bytes, 0x00)
     heap = merkle_heap(digests, digest_bytes)
     root = digest_rows_to_bytes(heap[1:2], digest_bytes)[0]
     return root, heap, DeviceLeafBlocks(words, block_len)

@@ -5,11 +5,12 @@ A tree commits to all oracles of one (round, domain); its every level is
 hashed on the device (kernels/blake2b.py) into a heap with the root at
 index 1.  Multi-proofs emit only the sibling digests not derivable from the
 queried set (merkle_tree.tcc:244-337); the verifier mirrors the walk on the
-host (merkle_tree.tcc:339-470).
+host (merkle_tree.tcc:339-470).  A zk tree hashes each leaf block with a
+secret salt appended and reveals the salts of the queried leaves.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
@@ -19,17 +20,29 @@ from .hashing import Blake2bHashing
 
 class MerkleTree:
     def __init__(self, hasher: Blake2bHashing, num_leaves: int,
-                 heap: torch.Tensor, root: bytes):
+                 heap: torch.Tensor, root: bytes,
+                 salts: Optional[bytes] = None):
         self.hasher = hasher
         self.num_leaves = num_leaves
         self.heap = heap
         self.root = root
+        self.salts = salts
+        self.make_zk = salts is not None
 
     @classmethod
     def from_device_heap(cls, hasher, num_leaves: int, heap: torch.Tensor,
-                         root: bytes) -> "MerkleTree":
-        """Wrap a tree whose every level was hashed on the device."""
-        return cls(hasher, num_leaves, heap, root)
+                         root: bytes, salts: Optional[bytes] = None
+                         ) -> "MerkleTree":
+        """Wrap a tree whose every level was hashed on the device; a zk
+        tree keeps the salt blob (num_leaves * salt_bytes) its leaves were
+        hashed with."""
+        return cls(hasher, num_leaves, heap, root, salts)
+
+    def reveal_salts(self, positions: Sequence[int]) -> List[bytes]:
+        """The salts of the (sorted, deduplicated) leaf positions."""
+        assert self.make_zk
+        sb = len(self.salts) // self.num_leaves
+        return [self.salts[p * sb:(p + 1) * sb] for p in sorted(set(positions))]
 
     @staticmethod
     def aux_node_ids(num_leaves: int, positions: Sequence[int]) -> List[int]:
@@ -66,15 +79,21 @@ class MerkleTree:
 
 def validate_multi_proof(hasher: Blake2bHashing, root: bytes, num_leaves: int,
                          positions: Sequence[int], leaf_blocks: Sequence[bytes],
-                         aux: Sequence[bytes]) -> bool:
+                         aux: Sequence[bytes],
+                         salts: Optional[Sequence[bytes]] = None) -> bool:
     """Recompute the root from the claimed leaf blocks (sorted, deduplicated
-    position order) and the pruned auxiliary digests."""
+    position order), their salts (zk trees) and the pruned auxiliary
+    digests."""
     n = num_leaves
     frontier = sorted(set(positions))
     if not frontier or frontier[0] < 0 or frontier[-1] >= n:
         return False
     if len(frontier) != len(leaf_blocks):
         return False
+    if salts is not None:
+        if len(salts) != len(frontier):
+            return False
+        leaf_blocks = [b + s for b, s in zip(leaf_blocks, salts)]
     digests = {n + p: hasher.leaf_hash(b) for p, b in zip(frontier, leaf_blocks)}
     aux = list(aux)
     ai = 0

@@ -4,11 +4,14 @@ libiop_tpu/bcs/prover.py).
 ``signal_prover_round_done`` builds one Merkle tree per (round, domain) on
 the device, absorbs roots and messages into the hashchain and squeezes the
 round's verifier randomness; after the last round it grinds the pow.
-``get_transcript`` replays every registered query, collects the real-oracle
-positions per tree and builds pruned multi-proofs.
+A tree holding a zk oracle is salted: one ``secrets.token_bytes`` blob per
+such tree, in tree order, as the reference draws it.  ``get_transcript``
+replays every registered query, collects the real-oracle positions per tree
+and builds pruned multi-proofs (with the queried leaves' salts).
 """
 from __future__ import annotations
 
+import secrets
 from typing import Dict, List, Set, Tuple
 
 from ..iop.runtime import IOPProtocol, OracleHandle
@@ -46,13 +49,16 @@ class BCSProver(IOPProtocol):
         for dom_id, oracle_ids in self._round_oracle_groups(rnd):
             dom = self.domains[dom_id]
             evals = [self.oracle_evals[i] for i in oracle_ids]
+            num_leaves = dom.num_elements() // rp.quotient_map_size
+            salts = None
+            if any(self.oracle_regs[i].make_zk for i in oracle_ids):
+                salts = secrets.token_bytes(num_leaves * self.hasher.salt_bytes)
             with PROFILER.block(f"leaf_hash_dev_r{rnd}_d{dom_id}"):
                 root, heap, blocks = device_leaf_digests(
                     self.F, evals, dom, rp.quotient_map_size,
-                    self.hasher.digest_bytes)
-            mt = MerkleTree.from_device_heap(
-                self.hasher, dom.num_elements() // rp.quotient_map_size,
-                heap, root)
+                    self.hasher.digest_bytes, salts=salts)
+            mt = MerkleTree.from_device_heap(self.hasher, num_leaves, heap,
+                                             root, salts=salts)
             self.merkle_trees[(rnd, dom_id)] = mt
             self.mt_leaf_blocks[(rnd, dom_id)] = blocks
             self.mt_roots[(rnd, dom_id)] = root
@@ -126,5 +132,6 @@ class BCSProver(IOPProtocol):
                     leaf_blocks=self.mt_leaf_blocks[key].gather(positions),
                     aux_digests=digest_rows_to_bytes(
                         mt.multi_proof_async(positions),
-                        self.hasher.digest_bytes))
+                        self.hasher.digest_bytes),
+                    salts=mt.reveal_salts(positions) if mt.make_zk else None)
             return t

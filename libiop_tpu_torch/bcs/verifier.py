@@ -3,10 +3,11 @@
 
 ``seal_interaction_registrations`` replays the hashchain from the
 transcript's roots and prover messages to rebuild all verifier randomness,
-checks the pow, validates every pruned multi-proof and installs the revealed
-values in an (oracle, position) -> value map.  Real-oracle queries are
-served from the map (an unrevealed position raises); virtual oracles recurse
-through their pointwise definitions.
+checks the pow, validates every pruned multi-proof (salted leaves for trees
+of zk oracles) and installs the revealed values in an (oracle, position) ->
+value map.  Real-oracle queries are served from the map (an unrevealed
+position raises); virtual oracles recurse through their pointwise
+definitions.
 """
 from __future__ import annotations
 
@@ -98,9 +99,13 @@ class BCSVerifier(IOPProtocol):
                 raise BCSVerificationError("bad leaf block size")
             if any(p < 0 or p >= num_leaves for p in prf.positions):
                 raise BCSVerificationError("leaf position out of range")
+            make_zk = any(self.oracle_regs[i].make_zk for i in oracle_ids)
+            if make_zk and prf.salts is None:
+                raise BCSVerificationError("missing zk salts")
             if not validate_multi_proof(
                     self.hasher, root, num_leaves, prf.positions,
-                    prf.leaf_blocks, prf.aux_digests):
+                    prf.leaf_blocks, prf.aux_digests,
+                    prf.salts if make_zk else None):
                 raise BCSVerificationError(f"multiproof invalid for tree {key}")
             for leaf_pos, block in zip(prf.positions, prf.leaf_blocks):
                 vals = parse_leaf_block(self.F, block, len(oracle_ids), c)

@@ -1,0 +1,67 @@
+// K7: padded-ELL sparse matrix-vector product over the field.
+//
+// Replaces the JAX reference's SparseMatrix._ell_apply
+// (libiop_tpu/relations/sparse.py:87), which computes M z and M^T y for the
+// R1CS matrices: a gather of K entries per output row (vals[entry],
+// vec[src]), a Montgomery product per entry, a lazy int64 sum over each
+// row's K products and one reduction, fused by XLA.
+//
+// Plan (built once per matrix on the host, kept on the device): output row s
+// owns slots s*K .. s*K + K-1 of entry (an index into vals, whose last column
+// is a zero the padding slots point at) and src (an index into vec).
+//
+// Design (first, simple): one thread per output row.  It walks its K slots,
+// skips padding, multiplies vals[entry] by vec[src] (CIOS, field.cuh) and
+// adds the product into a canonical accumulator mod p; the canonical sum is
+// unique, so it equals the reference's lazy sum reduced once.
+//
+// Bound on the H100: memory.  Per row, K pairs of 48-byte gathers and 16
+// bytes of plan against ~324 integer instructions per slot; the vec gathers
+// are scattered (one thread per row reads columns src[s*K + k]).
+#include <cuda_runtime.h>
+
+#include "field.cuh"
+
+namespace {
+
+__global__ void ell_matvec_kernel(uint32_t* __restrict__ out,
+                                  const uint32_t* __restrict__ vals,
+                                  size_t nvals,
+                                  const long long* __restrict__ entry,
+                                  const long long* __restrict__ src,
+                                  const uint32_t* __restrict__ vec,
+                                  size_t nvec, size_t S, int K, fp::Params P) {
+  const size_t s = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= S) return;
+  uint32_t acc[fp::N32] = {0, 0, 0, 0, 0, 0};
+  uint32_t x[fp::N32], y[fp::N32];
+  const size_t pad = nvals - 1;  // the zero column
+  for (int k = 0; k < K; ++k) {
+    const size_t e = (size_t)entry[s * K + k];
+    if (e == pad) continue;
+    fp::load(x, vals, nvals, e);
+    fp::load(y, vec, nvec, (size_t)src[s * K + k]);
+    fp::mont_mul(x, x, y, P);
+    fp::add_mod(acc, acc, x, P);
+  }
+  fp::store(out, S, s, acc);
+}
+
+}  // namespace
+
+extern "C" int ell_matvec_launch(void* out, const void* vals, long long nvals,
+                                 const void* entry, const void* src,
+                                 const void* vec, long long nvec, long long S,
+                                 int K, const uint32_t* field, void* stream) {
+  fp::Params P;
+  for (int j = 0; j < fp::N32; ++j) P.p[j] = field[j];
+  P.n0 = field[fp::N32];
+  const int threads = 128;
+  if (S > 0)
+    ell_matvec_kernel<<<(unsigned)((S + threads - 1) / threads), threads, 0,
+                        (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)vals, (size_t)nvals,
+        (const long long*)entry, (const long long*)src, (const uint32_t*)vec,
+        (size_t)nvec, (size_t)S, K, P);
+  return (int)cudaGetLastError();
+}

@@ -5,8 +5,7 @@ reduction, libiop_tpu/fields/prime.py:197-230, 361-399).
 Limb rows are int32 tensors holding values < 2^16; sums and products are
 formed in int64, whose headroom replaces the reference's uint32 lazy-limb
 bounds.  These functions are the plain versions of the kernels in
-``kernels/`` and the implementation of the field ops that have no kernel
-yet (add/sub/neg, the wide reduction).
+``kernels/``: the CPU runs them, and the card runs the kernels.
 """
 from __future__ import annotations
 
@@ -88,11 +87,24 @@ def mul_plain(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return mont_reduce_rows(F, t)
 
 
-def lazy_sum_reduce_plain(F, t: torch.Tensor) -> torch.Tensor:
-    """Montgomery form of the sum behind a lazy int64 limb sum t (L rows)."""
+def mont_reduce_wide_plain(F, t: torch.Tensor) -> torch.Tensor:
+    """value(t) * R^-1 mod p of a lazy int64 limb accumulator t (K <= 2L+2
+    rows of 16-bit weight, columns summed without carries), canonical L
+    limbs (the plain twin of kernel K6)."""
+    T = 2 * F.L + 2
+    K = t.shape[0]
+    assert K <= T, K
     t = t.to(torch.int64)
-    t = torch.cat([t, t.new_zeros((F.L + 2,) + tuple(t.shape[1:]))])
-    return mul_plain(F, mont_reduce_rows(F, t), F.r2_limbs(t.device, t.ndim))
+    if K < T:
+        t = torch.cat([t, t.new_zeros((T - K,) + tuple(t.shape[1:]))])
+    return mont_reduce_rows(F, t)
+
+
+def lazy_sum_reduce_plain(F, t: torch.Tensor) -> torch.Tensor:
+    """Montgomery form of the sum behind a lazy int64 limb sum t, i.e.
+    value(t) mod p (the plain twin of kernel K6)."""
+    return mul_plain(F, mont_reduce_wide_plain(F, t),
+                     F.r2_limbs(t.device, t.ndim))
 
 
 def add_plain(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

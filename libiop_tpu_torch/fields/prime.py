@@ -6,10 +6,12 @@ first, each entry one 16-bit limb: the reference's values and layout, so the
 two packages compare limb for limb.  Values are in Montgomery form
 (x*R mod p, R = 2^(16L)) and always fully reduced (< p).
 
-The product runs through kernel K1 (kernels/mont_mul.py) on the card; the
-other device ops are plain PyTorch (fields/limbs.py) for now.  Host-int
-methods mirror the reference exactly, including the ``rng.bytes`` draws of
-``random_ints`` that example generation and transcripts depend on.
+On the card the product runs through kernel K1 (kernels/mont_mul.py),
+add/sub/neg through K5 (kernels/field_addsub.py) and the lazy-sum
+reductions through K6 (kernels/lazy_reduce.py); CPU tensors run their plain
+twins (fields/limbs.py).  Host-int methods mirror the reference exactly,
+including the ``rng.bytes`` draws of ``random_ints`` that example
+generation and transcripts depend on.
 """
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels.field_addsub import field_addsub
+from ..kernels.lazy_reduce import lazy_reduce
 from ..kernels.mont_mul import mont_mul
 from . import limbs as _limbs
 
@@ -174,13 +178,16 @@ class PrimeField:
     # ring ops
     # ------------------------------------------------------------------
     def add(self, a, b):
-        return _limbs.add_plain(self, a, b)
+        """(a + b) mod p (kernel K5 on the card)."""
+        return field_addsub(self, "add", a.contiguous(), b.contiguous())
 
     def sub(self, a, b):
-        return _limbs.sub_plain(self, a, b)
+        """(a - b) mod p (kernel K5 on the card)."""
+        return field_addsub(self, "sub", a.contiguous(), b.contiguous())
 
     def neg(self, a):
-        return _limbs.sub_plain(self, torch.zeros_like(a), a)
+        """(-a) mod p (kernel K5 on the card)."""
+        return field_addsub(self, "neg", a.contiguous())
 
     def mul(self, a, b):
         """Montgomery product a*b*R^-1 mod p (kernel K1 on the card)."""
@@ -195,20 +202,13 @@ class PrimeField:
     def mont_reduce_wide(self, t):
         """Montgomery-reduce a lazy limb accumulator t (K <= 2L+2 rows,
         columns summed without carries) to canonical L limbs of
-        value(t) * R^-1 mod p."""
-        L = self.L
-        K = t.shape[0]
-        T = 2 * L + 2
-        assert K <= T, K
-        t = t.to(torch.int64)
-        if K < T:
-            t = torch.cat([t, t.new_zeros((T - K,) + tuple(t.shape[1:]))])
-        return _limbs.mont_reduce_rows(self, t)
+        value(t) * R^-1 mod p (kernel K6 on the card)."""
+        return lazy_reduce(self, t.to(torch.int64).contiguous(), False)
 
     def lazy_sum_reduce(self, t):
         """Reduce a lazy limb-wise sum of Montgomery values back to the
-        Montgomery form of the sum."""
-        return self.from_canonical_limbs(self.mont_reduce_wide(t))
+        Montgomery form of the sum, value(t) mod p (kernel K6 on the card)."""
+        return lazy_reduce(self, t.to(torch.int64).contiguous(), True)
 
     def segment_reduce(self, prod, seg_ids, num_segments: int):
         """Segment-sum of field values: prod (L, nnz) -> (L, num_segments)."""

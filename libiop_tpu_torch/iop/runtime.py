@@ -5,8 +5,9 @@ base class is an interactive simulator (fresh randomness) and the BCS
 prover/verifier subclass it to supply Fiat-Shamir randomness.  Oracle
 contents are (L, N) Montgomery limb tensors on the engine's device (prover
 side); pointwise query evaluation uses host ints mod p (verifier side), so
-virtual oracles implement both ``evaluated_contents`` and
-``evaluation_at_point``.
+virtual oracles implement both a vectorized definition (``traced_aux`` and
+``traced_contents``) and ``evaluation_at_point``.  The prover evaluates the
+DAGs of virtual oracles with kernel K8 (kernels/fused_dag.py).
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..algebra.domains import MultiplicativeCoset
+from ..kernels.fused_dag import Tape, TapeRecorder, fused_dag
 from ..utils.profiling import PROFILER
 
 
@@ -56,6 +58,7 @@ class OracleRegistration:
     domain: DomainHandle
     degree_bound: int
     round: int
+    make_zk: bool = False
 
 
 @dataclasses.dataclass
@@ -87,11 +90,35 @@ class RoundParameters:
 
 class VirtualOracle:
     """A polynomial defined from constituent oracles, with a vectorized
-    prover interface and a pointwise verifier interface that agree."""
+    prover interface and a pointwise verifier interface that agree.
+
+    The vectorized definition is ``traced_contents(F, aux, evals)``: field
+    ops (``F.add``, ``F.sub``, ``F.mul``) over the constituents' codewords
+    and the oracle's ``traced_aux(device)`` values, each either an (L, N)
+    codeword or a Python int (a canonical scalar).  ``F`` is the field
+    itself (eager evaluation) or a ``TapeRecorder`` (the fused K8 path)."""
+
+    def traced_aux(self, device) -> Optional[List]:
+        """Codewords and scalars the definition needs, or None while its
+        challenge is not set."""
+        raise NotImplementedError
+
+    def traced_contents(self, F, aux: List, evals: List):
+        raise NotImplementedError
+
+    def traced_sig(self) -> tuple:
+        """What, besides the oracle's type, its constituents and its aux
+        kinds, shapes the traced expression."""
+        return ()
 
     def evaluated_contents(self, constituent_evals: List[torch.Tensor]
                            ) -> torch.Tensor:
-        raise NotImplementedError
+        like = constituent_evals[0]
+        aux = self.traced_aux(like.device)
+        assert aux is not None, f"{type(self).__name__}: challenge not set"
+        aux = [self.F.scalar(a, like) if isinstance(a, int) else a
+               for a in aux]
+        return self.traced_contents(self.F, aux, constituent_evals)
 
     def evaluation_at_point(self, position: int, point_int: int,
                             constituent_values: List[int]) -> int:
@@ -100,6 +127,10 @@ class VirtualOracle:
     def prefetch_points(self, positions: List[int], points: List[int]):
         """Optional batch hook, called once with every position this oracle
         will be point-queried at before any ``evaluation_at_point``."""
+
+
+#: compiled tapes of fused DAGs, per DAG signature
+_TAPES: Dict[tuple, Tape] = {}
 
 
 class IOPProtocol:
@@ -147,11 +178,13 @@ class IOPProtocol:
             self._current_round += 1
             self._last_was_verifier = False
 
-    def register_oracle(self, domain_h: DomainHandle,
-                        degree_bound: int) -> OracleHandle:
+    def register_oracle(self, domain_h: DomainHandle, degree_bound: int,
+                        make_zk: bool = False) -> OracleHandle:
+        """``make_zk`` oracles are committed in salted Merkle trees."""
         self._flip_to_prover()
         self.oracle_regs.append(OracleRegistration(
-            domain_h, degree_bound, round=self._current_round))
+            domain_h, degree_bound, round=self._current_round,
+            make_zk=make_zk))
         return OracleHandle(len(self.oracle_regs) - 1)
 
     def register_virtual_oracle(self, domain_h: DomainHandle, degree_bound: int,
@@ -283,10 +316,80 @@ class IOPProtocol:
 
     def get_fused_oracle_evaluations(self, handles: Sequence[OracleHandle]
                                      ) -> List[torch.Tensor]:
-        """Evaluate the virtual-oracle DAGs under several roots: an eager
-        postorder walk, each node evaluated once and cached (the reference
-        traces the same DAG into one XLA dispatch)."""
-        return [self.get_oracle_evaluations(h) for h in handles]
+        """Evaluate the virtual-oracle DAGs under several roots in one launch
+        of kernel K8.  A postorder walk (the reference's, runtime.py:379-441)
+        collects the uncached virtual nodes; real oracles and cached virtual
+        ones are the tape's leaf inputs.  Their ``traced_contents`` compile
+        into a tape, cached per DAG signature; challenges and tables enter
+        through ``traced_aux``.  The roots' results are cached."""
+        roots = list(handles)
+        order: List[int] = []
+        node_cons: List[List[tuple]] = []
+        leaf_keys: List[tuple] = []
+        leaf_index: Dict[tuple, int] = {}
+        vindex: Dict[int, int] = {}
+
+        def leaf(key) -> tuple:
+            if key not in leaf_index:
+                leaf_index[key] = len(leaf_keys)
+                leaf_keys.append(key)
+            return ("leaf", leaf_index[key])
+
+        def walk(h: OracleHandle) -> tuple:
+            if not h.virtual:
+                return leaf(("r", h.id))
+            if h.id in self._virtual_evals_cache:
+                return leaf(("vc", h.id))
+            if h.id not in vindex:
+                cons = [walk(c) for c in self.virtual_regs[h.id].constituents]
+                vindex[h.id] = len(order)
+                order.append(h.id)
+                node_cons.append(cons)
+            return ("v", vindex[h.id])
+
+        root_keys = [walk(h) for h in roots]
+        leaves = [self.get_oracle_evaluations(OracleHandle(i, kind == "vc"))
+                  .contiguous() for kind, i in leaf_keys]
+        if not order:
+            return [leaves[j] for _, j in root_keys]
+        oracles = [self.virtual_regs[vid].oracle for vid in order]
+        auxes = []
+        for vid, oracle in zip(order, oracles):
+            aux = oracle.traced_aux(self.device)
+            if aux is None:
+                raise RuntimeError(f"virtual oracle {vid} "
+                                   f"({type(oracle).__name__}) has no tape: "
+                                   "its challenge is not set")
+            auxes.append(aux)
+        kinds = tuple(tuple(isinstance(a, int) for a in aux) for aux in auxes)
+        sig = (self.F.name, len(leaf_keys), tuple(root_keys), kinds,
+               tuple((type(o).__qualname__, o.traced_sig(), tuple(cons))
+                     for o, cons in zip(oracles, node_cons)))
+        tape = _TAPES.get(sig)
+        if tape is None:
+            b = TapeRecorder()
+            leaf_vals = [b.input() for _ in leaf_keys]
+            aux_vals = [[b.scalar() if is_int else b.input()
+                         for is_int in ks] for ks in kinds]
+            vals = []
+            for k, oracle in enumerate(oracles):
+                cv = [leaf_vals[j] if kind == "leaf" else vals[j]
+                      for kind, j in node_cons[k]]
+                vals.append(oracle.traced_contents(b, aux_vals[k], cv))
+            tape = _TAPES[sig] = b.finish(
+                [vals[j] for kind, j in root_keys if kind == "v"])
+        inputs = leaves + [a.contiguous() for aux in auxes for a in aux
+                           if not isinstance(a, int)]
+        scalars = [a for aux in auxes for a in aux if isinstance(a, int)]
+        outs = iter(fused_dag(self.F, tape, inputs, scalars))
+        results = []
+        for h, (kind, j) in zip(roots, root_keys):
+            if kind == "v":
+                self._virtual_evals_cache[h.id] = next(outs)
+                results.append(self._virtual_evals_cache[h.id])
+            else:
+                results.append(leaves[j])
+        return results
 
     # -- oracle access: pointwise (host ints) ------------------------------
     def prefetch_query_point_evals(self):

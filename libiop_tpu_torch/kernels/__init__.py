@@ -9,10 +9,13 @@ launches its kernel and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0}
+LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0,
+            "field_addsub": 0, "lazy_reduce": 0, "ell_matvec": 0,
+            "fused_dag": 0}
 
 
 def reset_launch_counts():
@@ -40,3 +43,28 @@ def stream_ptr(device: torch.device) -> ctypes.c_void_p:
 def raise_on_error(kernel: str, err: int):
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed (cudaError {err})")
+
+
+def _index_map(op_batch, out_batch):
+    """(div, mod) with op element = (i // div) % mod for flat output index
+    i, or None when the operand's broadcast is not one contiguous block."""
+    nb = len(out_batch)
+    op = (1,) * (nb - len(op_batch)) + tuple(op_batch)
+    live = [k for k in range(nb) if op[k] != 1]
+    if not live:
+        return 1, 1
+    lo, hi = live[0], live[-1]
+    if any(op[k] != out_batch[k] for k in range(lo, hi + 1)):
+        return None
+    return math.prod(out_batch[hi + 1:]), math.prod(out_batch[lo:hi + 1])
+
+
+def broadcast_operand(t, out_batch):
+    """The operand as K1/K5 read it: (tensor, (div, mod)) with element
+    (i // div) % mod for flat output index i; a broadcast that is not one
+    contiguous block is materialized."""
+    m = _index_map(t.shape[1:], out_batch)
+    if m is None:  # not a block broadcast: materialize it
+        t = t.expand((t.shape[0],) + tuple(out_batch)).contiguous()
+        m = (1, math.prod(out_batch))
+    return t, m

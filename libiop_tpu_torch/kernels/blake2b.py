@@ -34,50 +34,37 @@ _QUARTERS = [(0, 4, 8, 12), (1, 5, 9, 13), (2, 6, 10, 14), (3, 7, 11, 15),
 
 _M32 = 0xffffffff
 
-# -- plain twin: 64-bit words as (lo, hi) pairs of int64 tensors < 2^32 ------
+# -- plain twin: 64-bit words in int64 tensors (adds wrap mod 2^64) ----------
 
 
-def _add64(a, b):
-    lo = a[0] + b[0]
-    return lo & _M32, (a[1] + b[1] + (lo >> 32)) & _M32
+def _i64(v: int) -> int:
+    """A 64-bit word as the signed value an int64 tensor holds."""
+    return v - (1 << 64) if v >> 63 else v
 
 
-def _xor64(a, b):
-    return a[0] ^ b[0], a[1] ^ b[1]
+def _rotr64(x, n: int):
+    return ((x >> n) & ((1 << (64 - n)) - 1)) | (x << (64 - n))
 
 
-def _rotr64(a, n: int):
-    lo, hi = a
-    if n == 32:
-        return hi, lo
-    if n > 32:
-        lo, hi, n = hi, lo, n - 32
-    return (((lo >> n) | (hi << (32 - n))) & _M32,
-            ((hi >> n) | (lo << (32 - n))) & _M32)
-
-
-def _compress(h, m, t: int, last: bool, like):
-    const = lambda v: (torch.full_like(like, v & _M32),  # noqa: E731
-                       torch.full_like(like, v >> 32))
-    v = list(h) + [const(_IV[i]) for i in range(8)]
-    v[12] = (v[12][0] ^ (t & _M32), v[12][1] ^ (t >> 32))
+def _compress(h, m, t: int, last: bool):
+    v = list(h) + [torch.full_like(h[0], _i64(_IV[i])) for i in range(8)]
+    v[12] = v[12] ^ _i64(t)
     if last:
-        v[14] = (v[14][0] ^ _M32, v[14][1] ^ _M32)
+        v[14] = ~v[14]
     for r in range(12):
         s = _SIGMA[r]
         for k, (a, b, c, d) in enumerate(_QUARTERS):
             x, y = m[s[2 * k]], m[s[2 * k + 1]]
-            va = _add64(_add64(v[a], v[b]), x)
-            vd = _rotr64(_xor64(v[d], va), 32)
-            vc = _add64(v[c], vd)
-            vb = _rotr64(_xor64(v[b], vc), 24)
-            va = _add64(_add64(va, vb), y)
-            vd = _rotr64(_xor64(vd, va), 16)
-            vc = _add64(vc, vd)
-            vb = _rotr64(_xor64(vb, vc), 63)
+            va = v[a] + v[b] + x
+            vd = _rotr64(v[d] ^ va, 32)
+            vc = v[c] + vd
+            vb = _rotr64(v[b] ^ vc, 24)
+            va = va + vb + y
+            vd = _rotr64(vd ^ va, 16)
+            vc = vc + vd
+            vb = _rotr64(vb ^ vc, 63)
             v[a], v[b], v[c], v[d] = va, vb, vc, vd
-    return [(h[i][0] ^ v[i][0] ^ v[i + 8][0], h[i][1] ^ v[i][1] ^ v[i + 8][1])
-            for i in range(8)]
+    return [h[i] ^ v[i] ^ v[i + 8] for i in range(8)]
 
 
 def blake2b_rows_plain(words: torch.Tensor, msg_bytes: int, digest_bytes: int,
@@ -96,16 +83,16 @@ def blake2b_rows_plain(words: torch.Tensor, msg_bytes: int, digest_bytes: int,
     if tagged.shape[1] < nblocks * 32:
         tagged = torch.cat([tagged, tagged.new_zeros(
             (n, nblocks * 32 - tagged.shape[1]))], dim=1)
-    like = tagged[:, 0]
-    h = [(torch.full_like(like, _IV[i] & _M32),
-          torch.full_like(like, _IV[i] >> 32)) for i in range(8)]
-    h[0] = (h[0][0] ^ (0x01010000 ^ digest_bytes), h[0][1])
+    tagged = tagged[:, :nblocks * 32]       # words past the stream are 0
+    words64 = tagged[:, 0::2] | (tagged[:, 1::2] << 32)
+    h = [torch.full_like(words64[:, 0], _i64(_IV[i])) for i in range(8)]
+    h[0] = h[0] ^ (0x01010000 ^ digest_bytes)
     for b in range(nblocks):
-        blk = tagged[:, b * 32:(b + 1) * 32]
-        m = [(blk[:, 2 * i], blk[:, 2 * i + 1]) for i in range(16)]
+        m = [words64[:, 16 * b + i] for i in range(16)]
         last = b == nblocks - 1
-        h = _compress(h, m, total if last else (b + 1) * 128, last, like)
-    out = [h[i // 2][i % 2] for i in range(digest_bytes // 4)]
+        h = _compress(h, m, total if last else (b + 1) * 128, last)
+    out = [(h[i // 2] >> (32 * (i % 2))) & _M32
+           for i in range(digest_bytes // 4)]
     return torch.stack(out, dim=1).to(torch.int32)
 
 

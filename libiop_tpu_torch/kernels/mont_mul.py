@@ -6,33 +6,12 @@ import math
 
 import torch
 
-from . import LAUNCHES, build, check_limbs, ptr, raise_on_error, stream_ptr
+from . import (LAUNCHES, broadcast_operand, build, check_limbs, ptr,
+               raise_on_error, stream_ptr)
 from ..fields.limbs import mul_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5 + \
     [ctypes.c_void_p, ctypes.c_void_p]
-
-
-def _index_map(op_batch, out_batch):
-    """(div, mod) with op element = (i // div) % mod for flat output index
-    i, or None when the operand's broadcast is not one contiguous block."""
-    nb = len(out_batch)
-    op = (1,) * (nb - len(op_batch)) + tuple(op_batch)
-    live = [k for k in range(nb) if op[k] != 1]
-    if not live:
-        return 1, 1
-    lo, hi = live[0], live[-1]
-    if any(op[k] != out_batch[k] for k in range(lo, hi + 1)):
-        return None
-    return math.prod(out_batch[hi + 1:]), math.prod(out_batch[lo:hi + 1])
-
-
-def _launch_operand(t, out_batch):
-    m = _index_map(t.shape[1:], out_batch)
-    if m is None:  # not a block broadcast: materialize it
-        t = t.expand((t.shape[0],) + tuple(out_batch)).contiguous()
-        m = (1, math.prod(out_batch))
-    return t, m
 
 
 def mont_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,8 +28,8 @@ def mont_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out_batch = tuple(torch.broadcast_shapes(a.shape[1:], b.shape[1:]))
     n = math.prod(out_batch)
     out = torch.empty((F.L,) + out_batch, dtype=torch.int32, device=a.device)
-    a, (a_div, a_mod) = _launch_operand(a, out_batch)
-    b, (b_div, b_mod) = _launch_operand(b, out_batch)
+    a, (a_div, a_mod) = broadcast_operand(a, out_batch)
+    b, (b_div, b_mod) = broadcast_operand(b, out_batch)
     fn = build.launcher("mont_mul", "mont_mul_launch", _ARGTYPES)
     err = fn(ptr(out), ptr(a), ptr(b), n, a_div, a_mod, b_div, b_mod,
              F.kernel_params(), stream_ptr(a.device))

@@ -19,13 +19,13 @@ class RandomLinearCombinationOracle(VirtualOracle):
         assert len(coeffs) == self.num_oracles
         self.coefficients = [self.F.sample_int(int(c)) for c in coeffs]
 
-    def evaluated_contents(self, evals):
-        assert self.coefficients is not None, "challenge not yet set"
-        F = self.F
-        carr = F.from_ints(self.coefficients, evals[0].device)     # (L, n)
+    def traced_aux(self, device):
+        return None if self.coefficients is None else list(self.coefficients)
+
+    def traced_contents(self, F, aux, evals):
         acc = None
-        for i, ev in enumerate(evals):
-            term = F.mul(ev, carr[:, i:i + 1])
+        for c, ev in zip(aux, evals):
+            term = F.mul(ev, c)
             acc = term if acc is None else F.add(acc, term)
         return acc
 

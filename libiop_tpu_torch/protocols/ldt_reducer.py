@@ -1,15 +1,18 @@
-"""LDT instance reducer (port of the non-zk branch of
-libiop_tpu/protocols/ldt_reducer.py): every oracle f_i is combined as
-sum_i (c_i + c'_i x^{Delta_i}) f_i (c_0 = 1), so one multi-LDT tests all of
-them at the maximum degree."""
+"""LDT instance reducer (port of libiop_tpu/protocols/ldt_reducer.py): every
+oracle f_i is combined as sum_i (c_i + c'_i x^{Delta_i}) f_i (c_0 = 1), so
+one multi-LDT tests all of them at the maximum degree.  With zk each
+combination also takes a random blinding polynomial of the maximum tested
+degree, committed in round 0."""
 from __future__ import annotations
 
 import math
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..algebra.domains import device_table
+from ..algebra.generic import fft_any
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
 from .fri import log2_field_size
 
@@ -78,26 +81,34 @@ class CombinedLDTOracle(VirtualOracle):
         self.coefficients = [1] + [self.F.sample_int(int(c))
                                    for c in random_coeffs]
 
-    def evaluated_contents(self, evals):
-        assert self.coefficients is not None, "challenge not set"
-        F = self.F
-        dev = evals[0].device
-        cs = F.from_ints(self.coefficients[:self.n], dev)
-        cps = F.from_ints(self.coefficients[self.n:self.n + len(self.submaximal)]
-                          or [0], dev)
+    def traced_aux(self, device):
+        """[c_i for every input] + [c'_i for each submaximal input] + [the
+        x^{Delta_i} codeword of each submaximal input]."""
+        if self.coefficients is None:
+            return None
+        ns = len(self.submaximal)
+        return (self.coefficients[:self.n]
+                + self.coefficients[self.n:self.n + ns]
+                + [x_power_evals(self.F, self.L,
+                                 self.max_degree - self.input_degrees[i],
+                                 device) for i in self.submaximal])
+
+    def traced_sig(self):
+        return (self.n, tuple(self.submaximal))
+
+    def traced_contents(self, F, aux, evals):
+        ns = len(self.submaximal)
+        cs, cps, bumps = aux[:self.n], aux[self.n:self.n + ns], \
+            aux[self.n + ns:]
         acc = None
         sc = 0
         for i, ev in enumerate(evals):
-            c_i = cs[:, i:i + 1]
             if i in self.submaximal:
-                bump = x_power_evals(F, self.L,
-                                     self.max_degree - self.input_degrees[i], dev)
-                coeff = F.add(c_i.expand(bump.shape),
-                              F.mul(bump, cps[:, sc:sc + 1]))
+                coeff = F.add(cs[i], F.mul(bumps[sc], cps[sc]))
                 sc += 1
-                term = F.mul(ev, coeff)
             else:
-                term = F.mul(ev, c_i)
+                coeff = cs[i]
+            term = F.mul(ev, coeff)
             acc = term if acc is None else F.add(acc, term)
         return acc
 
@@ -121,14 +132,21 @@ class LDTInstanceReducer:
     """Hosts the multi-LDT (FRI) over the combined oracles."""
 
     def __init__(self, iop: IOPProtocol, codeword_handle,
-                 params: LDTReducerParams):
-        if params.make_zk:
-            raise NotImplementedError("zk LDT blinding is not ported yet")
+                 params: LDTReducerParams,
+                 rng: Optional[np.random.Generator] = None):
         self.iop = iop
         self.F = iop.F
         self.codeword_handle = codeword_handle
         self.params = params
         self.L = iop.get_domain(codeword_handle)
+        self.rng = rng or np.random.default_rng()
+        self.blinding_handles: List[OracleHandle] = []
+        if params.make_zk:
+            self.blinding_handles = [
+                iop.register_oracle(codeword_handle,
+                                    params.max_tested_degree_bound,
+                                    make_zk=True)
+                for _ in range(params.num_output_LDT_instances)]
         self.multi_ldt = None
 
     def set_ldt(self, ldt_factory):
@@ -141,15 +159,20 @@ class LDTInstanceReducer:
             assert d <= self.params.max_tested_degree_bound, (
                 f"oracle degree {d} exceeds max tested bound "
                 f"{self.params.max_tested_degree_bound}")
-        self.num_random_coefficients = 2 * len(self.input_handles)
+        zk = self.params.make_zk
+        if zk:
+            degrees = degrees + [self.params.max_tested_degree_bound]
+        self.num_random_coefficients = 2 * len(self.input_handles) + \
+            (2 if zk else 0)
         self.combined_oracles: List[CombinedLDTOracle] = []
         self.combined_handles: List[OracleHandle] = []
-        for _ in range(self.params.num_output_LDT_instances):
+        for i in range(self.params.num_output_LDT_instances):
             oracle = CombinedLDTOracle(self.F, self.L, degrees)
             self.combined_oracles.append(oracle)
             self.combined_handles.append(self.iop.register_virtual_oracle(
                 self.codeword_handle, self.params.max_tested_degree_bound,
-                list(self.input_handles), oracle))
+                list(self.input_handles)
+                + ([self.blinding_handles[i]] if zk else []), oracle))
         self.coefficient_handles = [
             self.iop.register_verifier_random_message(self.num_random_coefficients)
             for _ in range(self.params.num_output_LDT_instances)]
@@ -159,6 +182,16 @@ class LDTInstanceReducer:
 
     def register_queries(self):
         self.multi_ldt.register_queries()
+
+    def submit_masking_polynomial(self):
+        """zk: one random polynomial of max_tested_degree_bound
+        coefficients per output instance, drawn from the prover's rng."""
+        if not self.params.make_zk:
+            return
+        for h in self.blinding_handles:
+            coeffs = self.F.random((self.params.max_tested_degree_bound,),
+                                   self.rng, self.iop.device)
+            self.iop.submit_oracle(h, fft_any(coeffs, self.L))
 
     def _set_challenges(self):
         for i, oracle in enumerate(self.combined_oracles):

@@ -1,16 +1,17 @@
-"""Basic multi-lincheck (port of libiop_tpu/protocols/lincheck.py, non-zk).
+"""Basic multi-lincheck (port of libiop_tpu/protocols/lincheck.py).
 
 The verifier sends alpha and r_M; the virtual oracle is
 q(x) = p_alpha^1(x) * sum_M r_M f_Mz(x) - p_alpha^2(x) * f_z(x), with
 p_alpha^1 the LDE of the alpha powers placed at the constraint positions of
 the summation domain and p_alpha^2 the LDE of sum_M r_M M^T(alpha powers)
 placed at the variable positions.  Its sum over the summation domain is 0
-iff the linchecks hold (whp), which a batch sumcheck then proves.
+iff the linchecks hold (whp), which a batch sumcheck then proves (with a
+masking polynomial under zk).
 """
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -92,15 +93,17 @@ class MultiLincheckVirtualOracle(VirtualOracle):
                           fft_any(self._p2_coeffs, self.L))
         return self._p_cw
 
-    def evaluated_contents(self, evals):
-        assert self._p1_coeffs is not None, "challenge not set"
-        F = self.F
+    def traced_aux(self, device):
+        if self._p1_coeffs is None:
+            return None
+        return list(self._p_codewords()) + list(self.r_M)
+
+    def traced_contents(self, F, aux, evals):
+        p1_cw, p2_cw = aux[:2]
         fz = evals[0]
-        p1_cw, p2_cw = self._p_codewords()
-        r_arr = F.from_ints(self.r_M, fz.device)
         combined = None
-        for m, ev in enumerate(evals[1:]):
-            term = F.mul(ev, r_arr[:, m:m + 1])
+        for r, ev in zip(aux[2:], evals[1:]):
+            term = F.mul(ev, r)
             combined = term if combined is None else F.add(combined, term)
         return F.sub(F.mul(combined, p1_cw), F.mul(fz, p2_cw))
 
@@ -137,7 +140,8 @@ class MultiLincheck:
     def __init__(self, iop: IOPProtocol, codeword_handle, constraint_handle,
                  variable_handle, input_variable_dim: int, matrices,
                  fz_handle: OracleHandle, Mz_handles: List[OracleHandle],
-                 params: LincheckParams):
+                 params: LincheckParams,
+                 rng: Optional[np.random.Generator] = None):
         self.iop = iop
         self.F = iop.F
         self.params = params
@@ -156,9 +160,11 @@ class MultiLincheck:
         self.sumchecks: List[BatchSumcheck] = []
         self.oracles: List[MultiLincheckVirtualOracle] = []
         for _ in range(params.repetitions):
-            self.sumchecks.append(BatchSumcheck(
-                iop, self.summation_handle, codeword_handle,
-                self.lincheck_degree, params.make_zk))
+            sc = BatchSumcheck(iop, self.summation_handle, codeword_handle,
+                               self.lincheck_degree, params.make_zk, rng=rng)
+            if params.make_zk:
+                sc.register_masking_polynomial()
+            self.sumchecks.append(sc)
             self.oracles.append(MultiLincheckVirtualOracle(
                 self.F, iop.get_domain(codeword_handle), constraint_domain,
                 variable_domain, summation_domain, input_variable_dim,
@@ -180,6 +186,11 @@ class MultiLincheck:
     def register_proof(self):
         for sc in self.sumchecks:
             sc.register_proof()
+
+    def submit_sumcheck_masking_polynomials(self):
+        if self.params.make_zk:
+            for sc in self.sumchecks:
+                sc.submit_masking_polynomial()
 
     def _set_challenges(self):
         for i in range(self.params.repetitions):

@@ -1,9 +1,12 @@
-"""The RS-encoded Aurora protocol (port of the non-zk, non-holographic branch
-of libiop_tpu/protocols/r1cs_rs_iop.py): witness oracles fw/fAz/fBz/fCz, the
+"""The RS-encoded Aurora protocol (port of the non-holographic branch of
+libiop_tpu/protocols/r1cs_rs_iop.py): witness oracles fw/fAz/fBz/fCz, the
 fz and rowcheck virtual oracles, and dispatch into multi-lincheck.
 
 fz = fw * Z_input + f_{1,v}, with f_{1,v} interpolating (1, primary) over
 the input-variable domain; rowcheck = (fAz*fBz - fCz) / Z_constraint.
+With zk (query bound b) each witness polynomial gets Z*R added, R random of
+degree < b, so b evaluations outside the systematic domain reveal nothing:
+fw degree n-(k+1)+b, fA/B/Cz degree m+b, rowcheck m+2b-1.
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ from ..algebra.generic import (divide_by_vanishing_any, fft_any, ifft_any,
                                lagrange_coeffs_ints_any, place_columns,
                                vanishing_eval_int, vanishing_evals_over_any,
                                vanishing_inverse_evals_over_any)
+from ..algebra.poly import mul_by_vanishing
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
 from .lincheck import LincheckParams, MultiLincheck
 
@@ -40,12 +44,15 @@ class FzOracle(VirtualOracle):
             self._f1v_cw = fft_any(ifft_any(vals, self.input_domain), self.L)
         return self._f1v_cw
 
-    def evaluated_contents(self, evals):
-        assert self.primary is not None
-        F = self.F
-        dev = evals[0].device
-        z_in = vanishing_evals_over_any(self.input_domain, self.L, dev)
-        return F.add(F.mul(evals[0], z_in), self._f1v_over_codeword(dev))
+    def traced_aux(self, device):
+        if self.primary is None:
+            return None
+        return [vanishing_evals_over_any(self.input_domain, self.L, device),
+                self._f1v_over_codeword(device)]
+
+    def traced_contents(self, F, aux, evals):
+        z_in, f1v = aux
+        return F.add(F.mul(evals[0], z_in), f1v)
 
     def evaluation_at_point(self, position, x, vals):
         assert self.primary is not None
@@ -66,12 +73,13 @@ class RowcheckOracle(VirtualOracle):
         self.L = codeword_domain
         self.constraint_domain = constraint_domain
 
-    def evaluated_contents(self, evals):
-        F = self.F
+    def traced_aux(self, device):
+        return [vanishing_inverse_evals_over_any(self.constraint_domain,
+                                                 self.L, device)]
+
+    def traced_contents(self, F, aux, evals):
         az, bz, cz = evals
-        z_inv = vanishing_inverse_evals_over_any(self.constraint_domain,
-                                                 self.L, az.device)
-        return F.mul(F.sub(F.mul(az, bz), cz), z_inv)
+        return F.mul(F.sub(F.mul(az, bz), cz), aux[0])
 
     def evaluation_at_point(self, position, x, vals):
         F = self.F
@@ -84,33 +92,40 @@ class EncodedAuroraParams:
     def __init__(self, F, interactive_security_bits: int,
                  codeword_domain_dim: int, constraint_domain_dim: int,
                  summation_domain_dim: int, query_bound: int, make_zk: bool):
-        if make_zk:
-            raise NotImplementedError("zk Aurora is not ported yet")
         self.F = F
         self.codeword_domain_dim = codeword_domain_dim
         self.constraint_domain_dim = constraint_domain_dim
         self.summation_domain_dim = summation_domain_dim
-        self.query_bound = 0
-        self.make_zk = False
+        self.query_bound = query_bound if make_zk else 0
+        self.make_zk = make_zk
         self.lincheck_params = LincheckParams(
-            F, interactive_security_bits, constraint_domain_dim, False)
+            F, interactive_security_bits, constraint_domain_dim, make_zk)
 
     def max_tested_degree_bound(self) -> int:
-        return 1 << self.summation_domain_dim
+        """r1cs_rs_iop.tcc:56-77."""
+        if not self.make_zk:
+            return 1 << self.summation_domain_dim
+        b = self.query_bound
+        lincheck = 2 * (1 << self.summation_domain_dim) + b - 1
+        rowcheck = (1 << self.constraint_domain_dim) + 2 * b - 1
+        return max(lincheck, rowcheck)
 
     def max_constraint_degree_bound(self) -> int:
-        lincheck = 2 * (1 << self.summation_domain_dim) - 1
-        rowcheck = 2 * (1 << self.constraint_domain_dim) - 1
+        b = self.query_bound
+        lincheck = 2 * (1 << self.summation_domain_dim) + b - 1
+        rowcheck = 2 * (1 << self.constraint_domain_dim) + 2 * b - 1
         return max(lincheck, rowcheck)
 
 
 class EncodedAurora:
     def __init__(self, iop: IOPProtocol, constraint_handle, variable_handle,
-                 codeword_handle, r1cs, params: EncodedAuroraParams):
+                 codeword_handle, r1cs, params: EncodedAuroraParams,
+                 rng: Optional[np.random.Generator] = None):
         self.iop = iop
         self.F = iop.F
         self.params = params
         self.r1cs = r1cs
+        self.rng = rng or np.random.default_rng()
         self.constraint_domain = iop.get_domain(constraint_handle)
         self.variable_domain = iop.get_domain(variable_handle)
         self.L = iop.get_domain(codeword_handle)
@@ -123,11 +138,17 @@ class EncodedAurora:
         self.input_domain = self.variable_domain.get_subset_of_order(k + 1)
         n = self.variable_domain.order
         m = self.constraint_domain.order
-        self.fw_degree = n - (k + 1)
-        self.fw_handle = iop.register_oracle(codeword_handle, self.fw_degree)
-        self.fAz_handle = iop.register_oracle(codeword_handle, m)
-        self.fBz_handle = iop.register_oracle(codeword_handle, m)
-        self.fCz_handle = iop.register_oracle(codeword_handle, m)
+        b = params.query_bound
+        zk = params.make_zk
+        self.fw_degree = n - (k + 1) + b
+        self.fw_handle = iop.register_oracle(codeword_handle, self.fw_degree,
+                                             make_zk=zk)
+        self.fAz_handle = iop.register_oracle(codeword_handle, m + b,
+                                              make_zk=zk)
+        self.fBz_handle = iop.register_oracle(codeword_handle, m + b,
+                                              make_zk=zk)
+        self.fCz_handle = iop.register_oracle(codeword_handle, m + b,
+                                              make_zk=zk)
         self.fz_oracle = FzOracle(F, self.input_domain, self.L)
         self.fz_handle = iop.register_virtual_oracle(
             codeword_handle, self.fw_degree + k + 1, [self.fw_handle],
@@ -136,10 +157,10 @@ class EncodedAurora:
             iop, codeword_handle, constraint_handle, variable_handle,
             self.input_domain.dim, list(r1cs.matrices()), self.fz_handle,
             [self.fAz_handle, self.fBz_handle, self.fCz_handle],
-            params.lincheck_params)
+            params.lincheck_params, rng=self.rng)
         self.rowcheck_oracle = RowcheckOracle(F, self.L, self.constraint_domain)
         self.rowcheck_handle = iop.register_virtual_oracle(
-            codeword_handle, m - 1,
+            codeword_handle, m + 2 * b - 1,
             [self.fAz_handle, self.fBz_handle, self.fCz_handle],
             self.rowcheck_oracle)
         self.var_reindex = np.array(
@@ -152,14 +173,17 @@ class EncodedAurora:
     def register_proof(self):
         self.multi_lincheck.register_proof()
 
-    def _encode(self, primary: List[int], auxiliary: List[int]):
+    def _encode(self, primary: List[int], auxiliary: List[int], masks):
         """The four witness codewords (the reference's ``_encode_fn`` as
         plain eager code): f_{1,v}; fw = (aux - f_{1,v} at the witness slots,
-        interpolated) / Z_input; f_Mz = LDE of Mz for M in A, B, C."""
+        interpolated, plus Z_variable * masks[0] under zk) / Z_input; f_Mz =
+        LDE of Mz (plus Z_constraint * masks[1 + M] under zk) for M in A, B,
+        C."""
         F = self.F
         dev = self.iop.device
         k = self.r1cs.num_inputs
         n = self.variable_domain.order
+        m = self.constraint_domain.order
         aux_positions = self.var_reindex[k + 1:]
         f1v_coeffs = ifft_any(F.from_ints([1] + list(primary), dev),
                               self.input_domain)
@@ -169,19 +193,33 @@ class EncodedAurora:
             F.sub(F.from_ints(list(auxiliary), dev),
                   f1v_vd.index_select(1, pos_dev)), aux_positions, n)
         fw_coeffs = ifft_any(fw_prime, self.variable_domain)
+        if masks:
+            zr = mul_by_vanishing(masks[0], self.variable_domain)
+            zr[:, :n] = F.add(zr[:, :n], fw_coeffs)
+            fw_coeffs = zr
         quotient, _rem = divide_by_vanishing_any(fw_coeffs, self.input_domain)
         fw_cw = fft_any(quotient, self.L) if quotient.shape[1] else \
             F.zeros((self.L.order,), dev)
         z = self.r1cs.full_assignment(primary, auxiliary, dev)
         outs = [fw_cw]
-        for M in self.r1cs.matrices():
-            outs.append(fft_any(ifft_any(M.matvec(z), self.constraint_domain),
-                                self.L))
+        for idx, M in enumerate(self.r1cs.matrices()):
+            coeffs = ifft_any(M.matvec(z), self.constraint_domain)
+            if masks:
+                zr = mul_by_vanishing(masks[1 + idx], self.constraint_domain)
+                zr[:, :m] = F.add(zr[:, :m], coeffs)
+                coeffs = zr
+            outs.append(fft_any(coeffs, self.L))
         return outs
 
     def submit_witness_oracles(self, primary: List[int], auxiliary: List[int]):
+        """Under zk the sumcheck masks, then the four witness masks (fw, A,
+        B, C), draw from the prover's rng in the reference's order."""
         self.fz_oracle.set_primary_input(primary)
-        fw_cw, az_cw, bz_cw, cz_cw = self._encode(primary, auxiliary)
+        self.multi_lincheck.submit_sumcheck_masking_polynomials()
+        b = self.params.query_bound
+        masks = [self.F.random((max(b, 1),), self.rng, self.iop.device)
+                 for _ in range(4)] if self.params.make_zk else []
+        fw_cw, az_cw, bz_cw, cz_cw = self._encode(primary, auxiliary, masks)
         self.iop.submit_oracle(self.fw_handle, fw_cw)
         self.iop.submit_oracle(self.fAz_handle, az_cw)
         self.iop.submit_oracle(self.fBz_handle, bz_cw)

@@ -1,15 +1,17 @@
 """Sparse matrices with field-element values and a gather-based matvec.
 
 Port of libiop_tpu/relations/sparse.py.  The COO structure is host numpy;
-``matvec`` pads every segment to the maximum degree K (a static ELL plan),
-gathers, multiplies (K1), sums each row's K products lazily in int64 and
-reduces once.  When padding would exceed 4x nnz it falls back to a segment
-sum (``index_add_``) with the same single reduction.
+``matvec`` pads every segment to the maximum degree K (a static ELL plan,
+built once and kept on the device) and runs kernel K7 over it
+(kernels/ell_matvec.py).  When padding would exceed 4x nnz it falls back to
+a segment sum (``index_add_``) reduced once (K1 products, K6 reduction).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..kernels.ell_matvec import ell_matvec
 
 #: lazily summed terms per row stay far inside int64; the cap mirrors the
 #: reference's so the same systems are accepted
@@ -87,10 +89,7 @@ class SparseMatrix:
                 [self.vals, np.zeros((F.L, 1), np.int32)], axis=1))
             e_dev = self._dev(tag + "_entry", dev, lambda: entry_idx)
             s_dev = self._dev(tag + "_src", dev, lambda: src_flat)
-            prod = F.mul(vals_pad.index_select(1, e_dev),
-                         vec.index_select(1, s_dev))
-            lazy = prod.reshape(F.L, num_segments, K).to(torch.int64).sum(-1)
-            return F.lazy_sum_reduce(lazy)
+            return ell_matvec(F, vals_pad, e_dev, s_dev, vec.contiguous(), K)
         vals = self._dev("vals", dev, lambda: self.vals)
         src = self._dev(tag + "_src_coo", dev, lambda: src_ids)
         seg = self._dev(tag + "_seg_coo", dev, lambda: seg_ids)

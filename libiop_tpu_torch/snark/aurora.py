@@ -1,5 +1,5 @@
 """Aurora SNARK: the BCS-compiled non-interactive argument (port of
-libiop_tpu/snark/aurora.py, non-zk, BLAKE2b).
+libiop_tpu/snark/aurora.py, BLAKE2b, zk or not).
 
 ``aurora_snark_prover`` / ``aurora_snark_verifier`` take the reference's
 arguments plus ``device=`` (default "cuda"; "cpu" runs the plain PyTorch
@@ -63,14 +63,16 @@ def aurora_snark_prover(r1cs, primary: List[int], auxiliary: List[int],
                         params: AuroraSnarkParams,
                         rng: Optional[np.random.Generator] = None,
                         device="cuda") -> BCSTranscript:
-    """Prove r1cs satisfiability.  ``rng`` is the reference's argument (the
-    zk masks draw from it); the non-zk path draws nothing."""
+    """Prove r1cs satisfiability.  ``rng`` is the reference's argument: with
+    ``params.make_zk`` the masking and blinding polynomials draw from it
+    (a fresh unseeded generator when None); the non-zk path draws nothing.
+    zk Merkle salts come from ``secrets.token_bytes``, as the reference's."""
     dev = resolve_device(device)
     F = r1cs.F
     iop = BCSProver(F, params.bcs_params(), dev)
     with PROFILER.block("registration"):
         aurora = AuroraIOP(iop, r1cs, params.iop_params(
-            F, r1cs.num_constraints, r1cs.num_variables))
+            F, r1cs.num_constraints, r1cs.num_variables), rng=rng)
         aurora.register_interactions()
         iop.seal_interaction_registrations()
         aurora.register_queries()

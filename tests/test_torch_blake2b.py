@@ -41,8 +41,9 @@ def _tagged_digests(rows, msg_bytes, digest_bytes, tag):
                      digest_bytes, tag), digest_bytes)
 
 
-# the message shapes of tests/test_device_blake2b.py, at both digest sizes
-@pytest.mark.parametrize("msg_bytes", [0, 4, 124, 128, 132, 385])
+# the message shapes of tests/test_device_blake2b.py plus 127 bytes (the tag
+# and the message fill one block exactly), at both digest sizes
+@pytest.mark.parametrize("msg_bytes", [0, 4, 124, 127, 128, 132, 385])
 @pytest.mark.parametrize("digest_bytes", [8, 32])
 @pytest.mark.parametrize("tag", [0x00, 0x01])
 def test_tagged_rows_match_hashlib(msg_bytes, digest_bytes, tag):
@@ -75,28 +76,48 @@ def test_merkle_heap_matches_reference():
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
 
 
-def test_device_leaf_pipeline_matches_reference():
-    coset_size = 4
+def _leaf_pipeline_inputs(salt_bytes):
+    """2 oracles over 16 points in cosets of 4 (4 leaves), and salt_bytes
+    of salt per leaf when > 0."""
     Fj, Ft = jax_edwards_fr(), edwards_fr()
-    dim = 4
-    dj = jax_make_domain(Fj, dim, shift=jax_outside(Fj, dim))
-    dt = make_domain(Ft, dim, shift=element_outside_of_subset(Ft, dim))
-    rng = np.random.default_rng(coset_size)
-    evals = [Fj.from_ints_np(Ft.random_ints(1 << dim, rng)) for _ in range(2)]
-    root_j, heap_j, blocks_j = jcommon.device_leaf_digests(
-        Fj, [jnp.asarray(e) for e in evals], dj, coset_size, 32,
-        build_tree=True)
+    dj = jax_make_domain(Fj, 4, shift=jax_outside(Fj, 4))
+    dt = make_domain(Ft, 4, shift=element_outside_of_subset(Ft, 4))
+    rng = np.random.default_rng(4)
+    evals = [Fj.from_ints_np(Ft.random_ints(16, rng)) for _ in range(2)]
+    salts = rng.bytes(4 * salt_bytes) if salt_bytes else None
     root_t, heap_t, blocks_t = common.device_leaf_digests(
-        Ft, [limbs_from_numpy(e) for e in evals], dt, coset_size, 32)
+        Ft, [limbs_from_numpy(e) for e in evals], dt, 4, 32, salts=salts)
+    host_blocks = common.serialize_leaf_blocks(
+        Ft, [limbs_from_numpy(e) for e in evals], dt, 4)
+    assert blocks_t.gather(range(len(blocks_t))) == host_blocks
+    hasher = Blake2bHashing(128)
+    sb = salt_bytes
+    assert digest_rows_to_bytes(heap_t[len(blocks_t):], 32) == \
+        [hasher.leaf_hash(b + (salts[k * sb:(k + 1) * sb] if sb else b""))
+         for k, b in enumerate(host_blocks)]
+    return Fj, dj, evals, salts, root_t, heap_t
+
+
+def test_device_leaf_pipeline_matches_reference():
+    """The port's leaf pipeline and Merkle heap against the JAX package's,
+    the host serialization and hashlib."""
+    Fj, dj, evals, _, root_t, heap_t = _leaf_pipeline_inputs(0)
+    root_j, heap_j, blocks_j = jcommon.device_leaf_digests(
+        Fj, [jnp.asarray(e) for e in evals], dj, 4, 32, build_tree=True)
     assert root_t == root_j
     np.testing.assert_array_equal(heap_t.numpy().view(np.uint32),
                                   np.asarray(heap_j))
-    host_blocks = common.serialize_leaf_blocks(
-        Ft, [limbs_from_numpy(e) for e in evals], dt, coset_size)
-    assert blocks_t.gather(range(len(blocks_t))) == host_blocks
-    hasher = Blake2bHashing(128)
-    assert digest_rows_to_bytes(heap_t[len(blocks_t):], 32) == \
-        [hasher.leaf_hash(b) for b in host_blocks]
+
+
+def test_salted_device_leaf_pipeline_matches_reference():
+    """zk leaves, 0x00 || block || salt with 8-byte salts (32-bit
+    security): the leaf digests against the JAX package's (its leaf
+    pipeline without the tree, which the unsalted case covers), the host
+    serialization and hashlib."""
+    Fj, dj, evals, salts, _, heap_t = _leaf_pipeline_inputs(8)
+    digests_j, _ = jcommon.device_leaf_digests(
+        Fj, [jnp.asarray(e) for e in evals], dj, 4, 32, salts=salts)
+    assert digest_rows_to_bytes(heap_t[4:], 32) == digests_j
 
 
 @pytest.mark.parametrize("positions", [[0], [3, 3, 9], [1, 2, 5, 14, 15],

@@ -2,18 +2,39 @@
 
 The same canonical integers (numpy rng, plus 0, 1 and p-1) go through the
 JAX package's PrimeField and the port's on the CPU; limbs must be equal
-(tolerance 0: the arithmetic is exact)."""
+(tolerance 0: the arithmetic is exact).  The port's ops are checked to go
+through the kernel wrappers (K1 mul, K5 add/sub/neg, K6 reductions), whose
+plain twins are what the CPU runs."""
 import numpy as np
 import pytest
 import torch
 import jax
 
+import libiop_tpu_torch.fields.prime as port_prime
 from libiop_tpu.fields.prime import edwards_fr as jax_edwards_fr
 from libiop_tpu_torch.fields.prime import edwards_fr
 from libiop_tpu_torch.interop import limbs_from_numpy, limbs_to_numpy
 
 Fj = jax_edwards_fr()
 Ft = edwards_fr()
+
+_WRAPPER = {"mul": "mont_mul", "square": "mont_mul", "inv": "mont_mul",
+            "add": "field_addsub", "sub": "field_addsub",
+            "neg": "field_addsub"}
+
+
+@pytest.fixture
+def wrapper_calls(monkeypatch):
+    """Counts the calls PrimeField makes into each kernel wrapper."""
+    calls = {}
+    for name in ("mont_mul", "field_addsub", "lazy_reduce"):
+        fn = getattr(port_prime, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls[_name] = calls.get(_name, 0) + 1
+            return _fn(*args, **kw)
+        monkeypatch.setattr(port_prime, name, spy)
+    return calls
 
 
 def _operands(seed, n=61):
@@ -24,19 +45,21 @@ def _operands(seed, n=61):
 
 
 @pytest.mark.parametrize("op", ["mul", "add", "sub"])
-def test_binary_ops_match_reference(op):
+def test_binary_ops_match_reference(op, wrapper_calls):
     a, b, _ = _operands(1)
     want = np.asarray(getattr(Fj.j, op)(a, b))
     got = getattr(Ft, op)(limbs_from_numpy(a), limbs_from_numpy(b))
     np.testing.assert_array_equal(limbs_to_numpy(got), want)
+    assert wrapper_calls == {_WRAPPER[op]: 1}
 
 
 @pytest.mark.parametrize("op", ["square", "neg", "inv"])
-def test_unary_ops_match_reference(op):
+def test_unary_ops_match_reference(op, wrapper_calls):
     a, _, ints = _operands(2, n=13)
     want = np.asarray(getattr(Fj.j, op)(a))
     got = getattr(Ft, op)(limbs_from_numpy(a))
     np.testing.assert_array_equal(limbs_to_numpy(got), want)
+    assert set(wrapper_calls) == {_WRAPPER[op]}
     if op == "inv":
         assert Ft.to_ints(got)[ints.index(0)] == 0  # inv(0) = 0
 
@@ -49,15 +72,7 @@ def test_broadcast_scalar_mul_matches_reference():
     np.testing.assert_array_equal(limbs_to_numpy(got), want)
 
 
-def test_mont_reduce_wide_near_column_bound():
-    """Lazy limb sums of 4096 canonical values (columns near 2^28, the
-    reference's bound) reduce to the same limbs."""
-    rng = np.random.default_rng(4)
-    vals = np.stack([Fj.from_ints_np(Ft.random_ints(4096, rng)
-                                     + [Ft.p - 1] * 0)
-                     for _ in range(3)], axis=1)            # (12, 3, 4096)
-    vals[:, 0, :] = Fj.from_ints_np([Ft.p - 1] * 4096)
-    lazy = vals.astype(np.uint64).sum(axis=-1)
+def _check_lazy_reductions(lazy, calls):
     assert lazy.max() < (1 << 28)
     lazy32 = lazy.astype(np.uint32)
     want_w = np.asarray(jax.jit(Fj.mont_reduce_wide)(lazy32))
@@ -67,6 +82,27 @@ def test_mont_reduce_wide_near_column_bound():
                                   want_w)
     np.testing.assert_array_equal(limbs_to_numpy(Ft.lazy_sum_reduce(lazy_t)),
                                   want_l)
+    assert calls == {"lazy_reduce": 2}
+
+
+def test_mont_reduce_wide_near_column_bound(wrapper_calls):
+    """Lazy limb sums of 4096 canonical values (columns near 2^28, the
+    reference's bound) reduce to the same limbs."""
+    rng = np.random.default_rng(4)
+    vals = np.stack([Fj.from_ints_np(Ft.random_ints(4096, rng))
+                     for _ in range(3)], axis=1)            # (12, 3, 4096)
+    vals[:, 0, :] = Fj.from_ints_np([Ft.p - 1] * 4096)
+    _check_lazy_reductions(vals.astype(np.uint64).sum(axis=-1), wrapper_calls)
+
+
+def test_lazy_reductions_of_random_rows_match_reference(wrapper_calls):
+    """20 rows of random columns below 2^28: more rows than a sum of field
+    elements has (the value stays below p * R, where the reduction is
+    exact)."""
+    rng = np.random.default_rng(5)
+    _check_lazy_reductions(
+        rng.integers(0, 1 << 28, size=(20, 37), dtype=np.uint64),
+        wrapper_calls)
 
 
 def test_canonical_conversions_and_ints():

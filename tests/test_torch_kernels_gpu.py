@@ -10,15 +10,24 @@ import pytest
 import torch
 
 from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
-from libiop_tpu_torch.fields.limbs import mul_plain
+from libiop_tpu_torch.bcs import common
+from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,
+                                           mont_reduce_wide_plain, mul_plain)
 from libiop_tpu_torch.fields.prime import edwards_fr
 from libiop_tpu_torch.kernels import LAUNCHES
 from libiop_tpu_torch.kernels.blake2b import blake2b_rows, blake2b_rows_plain
+from libiop_tpu_torch.kernels.ell_matvec import ell_matvec, ell_matvec_plain
+from libiop_tpu_torch.kernels.field_addsub import (field_addsub,
+                                                   field_addsub_plain)
 from libiop_tpu_torch.kernels.fri_fold import fri_fold, fri_fold_plain
+from libiop_tpu_torch.kernels.fused_dag import (TapeRecorder, fused_dag,
+                                                fused_dag_plain)
+from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce
 from libiop_tpu_torch.kernels.mont_mul import mont_mul
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain
 from libiop_tpu_torch.protocols.fri import _fold_rows
 from libiop_tpu_torch.algebra.domains import _powers_doubling
+from libiop_tpu_torch.relations.examples import generate_r1cs_example
 
 pytestmark = pytest.mark.gpu
 F = edwards_fr()
@@ -96,3 +105,99 @@ def test_fri_fold_matches_twin(dev, eta):
     got = fri_fold(F, evals, rows, winv, xpow, c)
     torch.cuda.synchronize()
     assert torch.equal(got, fri_fold_plain(F, evals, rows, winv, xpow, c))
+
+
+@pytest.mark.parametrize("op", ["add", "sub", "neg"])
+@pytest.mark.parametrize("shape_a,shape_b", [
+    ((1000,), (1000,)), ((777,), (1,)), ((1,), (777,)), ((9, 16), (9, 1)),
+    ((4, 1, 8), (1, 6, 1))])
+def test_field_addsub_matches_twin(dev, op, shape_a, shape_b):
+    a, b = _elems(shape_a, 4, dev), _elems(shape_b, 5, dev)
+    a[:, 0] = 0                     # 0 - x and -0 hit the borrow edge
+    before = LAUNCHES["field_addsub"]
+    got = field_addsub(F, op, a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["field_addsub"] == before + 1
+    assert torch.equal(got, field_addsub_plain(F, op, a, None if op == "neg"
+                                               else b))
+
+
+@pytest.mark.parametrize("K", [12, 13, 26])
+@pytest.mark.parametrize("montgomery", [False, True])
+def test_lazy_reduce_matches_twin(dev, K, montgomery):
+    """Lazy sums of 4096 canonical values per row (columns near 2^28) and a
+    product accumulator's 26 rows of 2^36-sized columns."""
+    rng = np.random.default_rng(K)
+    n = 513
+    if K == 26:
+        a, b = _elems((n,), 6, dev), _elems((n,), 7, dev)
+        t = torch.zeros((K, n), dtype=torch.int64, device=dev)
+        for i in range(F.L):
+            t[i:i + F.L] += a[i].to(torch.int64) * b.to(torch.int64)
+    else:
+        t = torch.from_numpy(rng.integers(0, 4096 * 65535, size=(K, n))).to(
+            dev)
+    t[:, 0] = 0
+    got = lazy_reduce(F, t, montgomery)
+    torch.cuda.synchronize()
+    twin = lazy_sum_reduce_plain if montgomery else mont_reduce_wide_plain
+    assert torch.equal(got, twin(F, t))
+
+
+def test_ell_matvec_matches_twin(dev):
+    cs = generate_r1cs_example(F, 256, 15, 255, np.random.default_rng(3))[0]
+    z = _elems((256,), 8, dev)
+    for M in cs.matrices():
+        for tag, seg, src, S in (("mv", M.rows, M.cols, M.num_rows),
+                                 ("mvT", M.cols, M.rows, M.num_cols)):
+            entry, src_flat, K = M._ell_plan(seg, src, S)
+            vals = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+                [M.vals, np.zeros((F.L, 1), np.int32)], axis=1))).to(dev)
+            e = torch.from_numpy(entry).to(dev)
+            s = torch.from_numpy(src_flat).to(dev)
+            got = ell_matvec(F, vals, e, s, z, K)
+            torch.cuda.synchronize()
+            assert torch.equal(got, ell_matvec_plain(F, vals, e, s, z, K))
+
+
+def test_fused_dag_matches_twin(dev):
+    """A tape with every operand kind, a register reused after its last
+    use, a stored input and two roots."""
+    n = 3000
+    b = TapeRecorder()
+    x, y, z = b.input(), b.input(), b.input()
+    s0, s1 = b.scalar(), b.scalar()
+    acc = b.mul(x, s0)
+    acc = b.add(acc, b.mul(y, b.sub(s1, z)))
+    r0 = b.sub(b.mul(acc, acc), x)
+    r1 = b.add(b.mul(r0, s1), b.sub(s0, y))
+    tape = b.finish([r0, r1, z])
+    inputs = [_elems((n,), 10 + k, dev) for k in range(3)]
+    scalars = [0, F.p - 1]
+    before = LAUNCHES["fused_dag"]
+    got = fused_dag(F, tape, inputs, scalars)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_dag"] == before + 1
+    want = fused_dag_plain(F, tape, inputs, scalars)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("salt_bytes", [0, 8, 32])
+def test_salted_leaf_pipeline_matches_host(dev, salt_bytes):
+    from libiop_tpu_torch.algebra.generic import (element_outside_of_subset,
+                                                  make_domain)
+    from libiop_tpu_torch.bcs.hashing import Blake2bHashing
+    dt = make_domain(F, 6, shift=element_outside_of_subset(F, 6))
+    evals = [_elems((64,), 20 + k, dev) for k in range(3)]
+    salts = np.random.default_rng(salt_bytes).bytes(16 * salt_bytes) \
+        if salt_bytes else None
+    root, heap, blocks = common.device_leaf_digests(F, evals, dt, 4, 32,
+                                                    salts=salts)
+    host = common.serialize_leaf_blocks(F, [e.cpu() for e in evals], dt, 4)
+    assert blocks.gather(range(16)) == host
+    hasher = Blake2bHashing(128)
+    sb = salt_bytes
+    want = [hasher.leaf_hash(b + (salts[k * sb:(k + 1) * sb] if sb else b""))
+            for k, b in enumerate(host)]
+    got = heap[16:].cpu().numpy().astype("<u4")
+    assert [got[k].tobytes() for k in range(16)] == want

@@ -1,7 +1,10 @@
 """Port vs reference: R1CS example generation and the sparse matvecs (ELL
-plan and segment-sum fallback).  Tolerance 0."""
+plan through kernel K7's wrapper, and the segment-sum fallback).
+Tolerance 0."""
 import numpy as np
 import pytest
+
+import libiop_tpu_torch.relations.sparse as port_sparse
 
 from libiop_tpu.fields.prime import edwards_fr as jax_edwards_fr
 from libiop_tpu.relations.examples import \
@@ -31,7 +34,13 @@ def test_example_generation_matches_reference():
 
 
 @pytest.mark.parametrize("segsum", [False, True])
-def test_matvecs_match_reference(segsum):
+def test_matvecs_match_reference(segsum, monkeypatch):
+    real, ell_calls = port_sparse.ell_matvec, []
+
+    def spy(*args):
+        ell_calls.append(args[-1])
+        return real(*args)
+    monkeypatch.setattr(port_sparse, "ell_matvec", spy)
     (cj, pj, aj), (ct, pt, at) = _pair(7, m=32, k=3, n=31)
     rng = np.random.default_rng(8)
     z = Fj.from_ints_np([1] + list(pj) + list(aj))
@@ -47,6 +56,7 @@ def test_matvecs_match_reference(segsum):
             limbs_to_numpy(Mt.matvec_transpose(limbs_from_numpy(y),
                                                force_segsum=segsum)),
             np.asarray(Mj.matvec_transpose(y)))
+    assert len(ell_calls) == (0 if segsum else 6)
 
 
 def test_variable_expressions_normalize_like_raw_pairs():
