@@ -6,23 +6,33 @@ Phases (any failure exits non-zero and prints no result line):
  1. require a CUDA device; print the card's name and power limit;
  2. build the hand-written kernels from libiop_tpu_torch/csrc (one nvcc per
     source, in parallel) and the native pow solver; print the build seconds;
- 3. hold each kernel K1-K7 (and K3 on salted zk leaves) against its plain
-    PyTorch twin on the card at the main paths' shapes (exact equality) and
-    time both with CUDA events;
+ 3. hold each field kernel K1-K7 (and K3 on salted zk leaves) against its
+    plain PyTorch twin on the card at the main paths' shapes (exact
+    equality), over edwards_Fr (6-word instantiations) and alt_bn128_Fr
+    (8-word), and time both with CUDA events;
  4. golden: the Aurora proofs of the reference's golden configuration,
-    non-zk and zk (Merkle salts from a seeded stream), proven on the card,
-    hash to the JAX package's sha256s; they verify, and a flipped byte or a
-    wrong primary input is rejected;
+    non-zk and zk (Merkle salts from a seeded stream), and of its Poseidon
+    configuration over alt_bn128_Fr (poseidon, poseidon_high_alpha, and
+    poseidon with zk), proven on the card, hash to the JAX package's
+    sha256s; they verify, and a flipped byte or a wrong primary input is
+    rejected;
  5. main path: Aurora prove + verify at 2^log_n constraints with bench.py's
-    configuration, non-zk; every kernel's launch count over that run must
-    be > 0 and no plain twin may run on a CUDA tensor;
+    configuration over edwards_Fr with BLAKE2b, non-zk; every kernel of the
+    path must be launched (count > 0) and no plain twin may run on a CUDA
+    tensor;
  6. zk main path: the same configuration with make_zk=True, the same checks;
     then K8 against its twin on the DAG of its fri_combine_inputs call;
- 7. print the kernels JSON line, then the device JSON line last.
+ 7. the same two paths over alt_bn128_Fr with Poseidon trees and the
+    Poseidon hashchain (hash_name="poseidon"), the same checks, K8 on the
+    zk DAG; then K9-K12 against their twins on the largest input each got
+    on the paths of each field (recorded during the paths);
+ 8. print the card's name and power limit, the kernels JSON line, then the
+    device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
 import contextlib
+import gc
 import hashlib
 import json
 import os
@@ -42,9 +52,11 @@ from libiop_tpu_torch.bcs.common import BCSTranscript  # noqa: E402
 from libiop_tpu_torch.fields import limbs  # noqa: E402
 from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,  # noqa: E402
                                            mont_reduce_wide_plain, mul_plain)
-from libiop_tpu_torch.fields.prime import edwards_fr  # noqa: E402
+from libiop_tpu_torch.algebra import domains, poly  # noqa: E402
+from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
 from libiop_tpu_torch.iop import runtime  # noqa: E402
 from libiop_tpu_torch.kernels import build  # noqa: E402
+from libiop_tpu_torch.kernels import poseidon as k9  # noqa: E402
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows,  # noqa: E402
                                               blake2b_rows_plain, merkle_heap)
 from libiop_tpu_torch.kernels.ell_matvec import (ell_matvec,  # noqa: E402
@@ -54,9 +66,16 @@ from libiop_tpu_torch.kernels.field_addsub import (field_addsub,  # noqa: E402
 from libiop_tpu_torch.kernels.fri_fold import fri_fold, fri_fold_plain  # noqa: E402
 from libiop_tpu_torch.kernels.fused_dag import (ADD, MUL, SUB,  # noqa: E402
                                                 fused_dag, fused_dag_plain)
+from libiop_tpu_torch.kernels.horner import (blocking, horner,  # noqa: E402
+                                             horner_plain)
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain  # noqa: E402
+from libiop_tpu_torch.kernels.powers import powers, powers_plain  # noqa: E402
+from libiop_tpu_torch.kernels.vanishing import (  # noqa: E402
+    vanishing_divide, vanishing_divide_plain, vanishing_multiply,
+    vanishing_multiply_plain)
+from libiop_tpu_torch.protocols import fri  # noqa: E402
 from libiop_tpu_torch.relations.examples import generate_r1cs_example  # noqa: E402
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,  # noqa: E402
                                            aurora_snark_prover,
@@ -71,15 +90,51 @@ GOLDEN_SHA256 = "ca51f9c12bb0f3383b696ad92bd3b7af9a13acd29463a760d5dd61d7d7db17c
 #: JAX package's prover gives it (tests/test_torch_zk_aurora.py)
 GOLDEN_ZK_SHA256 = \
     "02e9bb70ba8ffbde03f75e379618274cdd4565c4256bb52ea9d1bd3b70e70f55"
+#: sha256s of the JAX package's Aurora proofs over alt_bn128_Fr in its
+#: Poseidon configuration (tests/test_poseidon.py:91-112, example from
+#: default_rng(77), prover rng default_rng(78), salts from default_rng(7)):
+#: case -> (hash_name, make_zk, sha256)  (tests/test_torch_poseidon_aurora.py)
+POSEIDON_PINS = {
+    "poseidon": ("poseidon", False,
+                 "302af824056aa90b2df01250d8a5d60e3d3aafa42f28ca8ea28e8424c6608337"),
+    "poseidon_high_alpha": (
+        "poseidon_high_alpha", False,
+        "3d00d3f11c6139d39ce3f03054b9114c01d439b1c7ed6197c96e87a4e9803fb2"),
+    "poseidon_zk": ("poseidon", True,
+                    "50ebc919c82250acc2c1d3183d0bcdc48d4eae4b02410956d9e42011816c12ae"),
+}
 
 # Least-time model of the H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3;
 # 32-bit integer instructions at 64 lanes per SM x 132 SMs x 1.98 GHz boost.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 64 * 132 * 1.98e9
-ELEM_BYTES = 12 * 4          # one field element as 12 int32 limbs
-# 32-bit integer instructions per operation (lower bounds):
-MONT_OPS = 300               # CIOS 6x32: 150 multiplies (lo/hi) + 150 carry adds
-ADDSUB_OPS = 24              # 6-limb add/sub with carry + conditional select
+
+
+def elem_bytes(F):
+    """One field element in device memory: L int32 limbs (48 or 64 B)."""
+    return 4 * F.L
+
+
+# 32-bit integer instructions per operation (lower bounds), for W = L/2
+# 32-bit words:
+def mont_ops(F):
+    """A CIOS product: 300 at W = 6 (150 multiplies, lo/hi, and 150 carry
+    adds), growing as W^2 (533 at W = 8)."""
+    return round(300 * (F.L // 2) ** 2 / 36)
+
+
+def half_mont_ops(F):
+    """A W x W wide product (no reduction), or the Montgomery reduction of
+    one: each about half a CIOS product (W^2 multiplies, lo/hi, and their
+    carry adds)."""
+    return round(mont_ops(F) / 2)
+
+
+def addsub_ops(F):
+    """A W-word add/sub with carry and conditional select: 4 per word."""
+    return 4 * (F.L // 2)
+
+
 # 12 rounds x 8 G x (6 add64 + 4 xor64 + 3 rot64) at 2 instructions each; the
 # fourth rotate of G is by 32, a swap of the two halves, and costs nothing
 BLAKE2B_BLOCK_OPS = 12 * 8 * (6 + 4 + 3) * 2
@@ -128,14 +183,17 @@ def random_elems(F, n, rng, dev):
     return F.from_ints(F.random_ints(n, rng), dev)
 
 
-def check_kernels(F, dev, rng, cs_main):
+def check_kernels(F, dev, rng, cs_main, blake2b=True):
     """Phase 3: K1-K7 against their twins at the main paths' shapes for
     cs_main, the main path's constraint system of 2^k constraints (k capped
-    at 16): non-zk codewords of 2^(k+2), zk codewords of 2^(k+4)."""
+    at 16) over F: non-zk codewords of 2^(k+2), zk codewords of 2^(k+4).
+    K3 (BLAKE2b, no field) only with ``blake2b``."""
     rows = []
     k = min(cs_main.num_constraints.bit_length() - 1, 16)
+    L = F.L
+    ELEM_BYTES, MONT_OPS, ADDSUB_OPS = elem_bytes(F), mont_ops(F), addsub_ops(F)
 
-    # K1: Montgomery product on (12, 2^(k+3))
+    # K1: Montgomery product on (L, 2^(k+3))
     n = 1 << (k + 3)
     a, b = random_elems(F, n, rng, dev), random_elems(F, n, rng, dev)
     got, want = mont_mul(F, a, b), mul_plain(F, a, b)
@@ -148,7 +206,7 @@ def check_kernels(F, dev, rng, cs_main):
         ms=time_ms(lambda: mont_mul(F, a, b)),
         plain_ms=time_ms(lambda: mul_plain(F, a, b)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"(12, 2^{k + 3}) x (12, 2^{k + 3})"))
+        shape=f"({L}, 2^{k + 3}) x ({L}, 2^{k + 3})"))
 
     # K2: the k+3 butterfly stages of one NTT of size 2^(k+3)
     from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
@@ -188,45 +246,44 @@ def check_kernels(F, dev, rng, cs_main):
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"{dim} stages over N = 2^{dim} (one NTT)"))
 
-    # K3: round-1 leaves of the non-zk path (2^(k+1) leaves of 4 oracles x
-    # coset 2 x 6 words = 192 bytes, 32-byte digests) plus the full tree
-    nl, nw, db = 1 << (k + 1), 48, 32
-    words = torch.from_numpy(rng.integers(0, 1 << 32, size=(nl, nw),
-                                          dtype=np.uint64).astype(np.uint32)
-                             .view(np.int32)).to(dev)
+    if blake2b:
+        # K3: round-1 leaves of the non-zk path (2^(k+1) leaves of 4 oracles x
+        # coset 2 x 6 words = 192 bytes, 32-byte digests) plus the full tree
+        nl, nw, db = 1 << (k + 1), 48, 32
+        words = torch.from_numpy(rng.integers(0, 1 << 32, size=(nl, nw),
+                                              dtype=np.uint64).astype(np.uint32)
+                                 .view(np.int32)).to(dev)
 
-    def commit_kernel():
-        return merkle_heap(blake2b_rows(words, 4 * nw, db, 0x00), db)
+        def commit_kernel():
+            return merkle_heap(blake2b_rows(words, 4 * nw, db, 0x00), db)
 
-    def commit_plain():
-        level = blake2b_rows_plain(words, 4 * nw, db, 0x00)
-        heap = [level]
-        while level.shape[0] > 1:
-            level = blake2b_rows_plain(level.reshape(-1, 2 * db // 4), 2 * db,
-                                       db, 0x01)
-            heap.append(level)
-        return torch.cat([torch.zeros_like(level)] + heap[::-1])
+        def commit_plain():
+            level = blake2b_rows_plain(words, 4 * nw, db, 0x00)
+            heap = [level]
+            while level.shape[0] > 1:
+                level = blake2b_rows_plain(level.reshape(-1, 2 * db // 4), 2 * db,
+                                           db, 0x01)
+                heap.append(level)
+            return torch.cat([torch.zeros_like(level)] + heap[::-1])
 
-    err = max_abs_err(commit_kernel(), commit_plain())
-    leaf_blocks = -(-(4 * nw + 1) // 128)
-    bms, by = bound_ms(nl * 4 * nw + 2 * nl * db,
-                       (nl * leaf_blocks + nl - 1) * BLAKE2B_BLOCK_OPS)
-    rows.append(dict(
-        name="blake2b_rows", route="cuda",
-        source="libiop_tpu_torch/csrc/blake2b.cu",
-        replaces="libiop_tpu/bcs/device_blake2b.py:198", max_abs_err=err,
-        ms=time_ms(commit_kernel), plain_ms=time_ms(commit_plain),
-        bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"2^{k + 1} leaves x 192 B + {k + 1} tree levels"))
+        err = max_abs_err(commit_kernel(), commit_plain())
+        leaf_blocks = -(-(4 * nw + 1) // 128)
+        bms, by = bound_ms(nl * 4 * nw + 2 * nl * db,
+                           (nl * leaf_blocks + nl - 1) * BLAKE2B_BLOCK_OPS)
+        rows.append(dict(
+            name="blake2b_rows", route="cuda",
+            source="libiop_tpu_torch/csrc/blake2b.cu",
+            replaces="libiop_tpu/bcs/device_blake2b.py:198", max_abs_err=err,
+            ms=time_ms(commit_kernel), plain_ms=time_ms(commit_plain),
+            bound_ms=bms, bound_by=by, library_ms=None,
+            shape=f"2^{k + 1} leaves x 192 B + {k + 1} tree levels"))
 
     # K4: fold with eta = 2 on N = 2^(k+3)
-    from libiop_tpu_torch.protocols.fri import _fold_rows
-    from libiop_tpu_torch.algebra.domains import _powers_doubling
     eta, c = 2, 4
     evals = random_elems(F, N, rng, dev)
-    rows_t = torch.from_numpy(_fold_rows(F, eta)).to(dev)
+    rows_t = torch.from_numpy(fri._fold_rows(F, eta)).to(dev)
     winv = dom.inverse_generator_powers(dev)
-    xpow = _powers_doubling(F, random_elems(F, 1, rng, dev).reshape(F.L), c)
+    xpow = powers_plain(F, random_elems(F, 1, rng, dev).reshape(F.L), c)
     err = max_abs_err(fri_fold(F, evals, rows_t, winv, xpow, c),
                       fri_fold_plain(F, evals, rows_t, winv, xpow, c))
     # the fold's own work per output j: a radix-2 inverse NTT of size c, the
@@ -245,7 +302,7 @@ def check_kernels(F, dev, rng, cs_main):
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"eta = 2, N = 2^{dim} -> 2^{dim - 2}"))
     # K5: add with both operands full, sub against a broadcast scalar and
-    # neg, on (12, 2^(k+4)) (a zk codeword)
+    # neg, on (L, 2^(k+4)) (a zk codeword)
     n = 1 << (k + 4)
     a, b = random_elems(F, n, rng, dev), random_elems(F, n, rng, dev)
     s = random_elems(F, 1, rng, dev)
@@ -254,7 +311,7 @@ def check_kernels(F, dev, rng, cs_main):
     for op, x, y in (("add", a, b), ("sub", a, s), ("neg", a, None)):
         errs.append(max_abs_err(field_addsub(F, op, x, y),
                                 field_addsub_plain(F, op, x, y)))
-        log(f"  field_addsub {op} (12, 2^{k + 4}) x "
+        log(f"  field_addsub {op} ({L}, 2^{k + 4}) x "
             f"{'-' if y is None else tuple(y.shape)} err {errs[-1]}")
     bms, by = bound_ms(3 * ELEM_BYTES * n, ADDSUB_OPS * n)
     rows.append(dict(
@@ -264,16 +321,17 @@ def check_kernels(F, dev, rng, cs_main):
         ms=time_ms(lambda: field_addsub(F, "add", a, b)),
         plain_ms=time_ms(lambda: field_addsub_plain(F, "add", a, b)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"add (12, 2^{k + 4}) + (12, 2^{k + 4})"))
+        shape=f"add ({L}, 2^{k + 4}) + ({L}, 2^{k + 4})"))
 
-    # K6: mont_reduce_wide of a (26, n) product accumulator, and
-    # lazy_sum_reduce of a (12, n) lazy sum of 4096 values per column
+    # K6: mont_reduce_wide of a (2L+2, n) product accumulator, and
+    # lazy_sum_reduce of a (L, n) lazy sum of 4096 values per column
     wide = torch.zeros((2 * F.L + 2, n), dtype=torch.int64, device=dev)
     for i in range(F.L):
         wide[i:i + F.L] += a[i].to(torch.int64) * b.to(torch.int64)
     wide_err = max_abs_err(lazy_reduce(F, wide, False),
                            mont_reduce_wide_plain(F, wide))
-    log(f"  lazy_reduce mont_reduce_wide (26, 2^{k + 4}) err {wide_err}")
+    log(f"  lazy_reduce mont_reduce_wide ({2 * L + 2}, 2^{k + 4}) err "
+        f"{wide_err}")
     lazy = torch.randint(0, 4096 * 65535, (F.L, n), dtype=torch.int64,
                          device=dev)
     err = max(wide_err, max_abs_err(lazy_reduce(F, lazy, True),
@@ -288,7 +346,7 @@ def check_kernels(F, dev, rng, cs_main):
         ms=time_ms(lambda: lazy_reduce(F, lazy, True)),
         plain_ms=time_ms(lambda: lazy_sum_reduce_plain(F, lazy)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"lazy_sum_reduce (12, 2^{k + 4}) int64"))
+        shape=f"lazy_sum_reduce ({L}, 2^{k + 4}) int64"))
 
     # K7: the main path's A z, B z, C z and A^T y
     A, B, C = cs_main.matrices()
@@ -321,30 +379,39 @@ def check_kernels(F, dev, rng, cs_main):
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"A z, B z, C z, A^T y at 2^{k} (nnz {nnz})"))
 
-    # K3 on the zk round-0 leaves: 2^(k+2) leaves of 6 oracles x coset 4
-    # x 6 words and a 32-byte salt (152 words, 608 bytes), 32-byte digests
-    nl, nw = 1 << (k + 2), 6 * 4 * 6 + 8
-    words = torch.from_numpy(rng.integers(0, 1 << 32, size=(nl, nw),
-                                          dtype=np.uint64).astype(np.uint32)
-                             .view(np.int32)).to(dev)
-    err = max_abs_err(blake2b_rows(words, 4 * nw, db, 0x00),
-                      blake2b_rows_plain(words, 4 * nw, db, 0x00))
-    ms = time_ms(lambda: blake2b_rows(words, 4 * nw, db, 0x00))
-    plain = time_ms(lambda: blake2b_rows_plain(words, 4 * nw, db, 0x00),
-                    reps=1, warmup=0)
-    log(f"  blake2b_rows salted zk leaves 2^{k + 2} x 608 B err {err} kernel "
-        f"{ms:.4f} ms plain {plain:.2f} ms")
-    if err:
-        raise AssertionError("blake2b_rows (salted leaves) disagrees with "
-                             "its twin")
+    if blake2b:
+        # K3 on the zk round-0 leaves: 2^(k+2) leaves of 6 oracles x coset 4
+        # x 6 words and a 32-byte salt (152 words, 608 bytes), 32-byte digests
+        nl, nw = 1 << (k + 2), 6 * 4 * 6 + 8
+        words = torch.from_numpy(rng.integers(0, 1 << 32, size=(nl, nw),
+                                              dtype=np.uint64).astype(np.uint32)
+                                 .view(np.int32)).to(dev)
+        err = max_abs_err(blake2b_rows(words, 4 * nw, db, 0x00),
+                          blake2b_rows_plain(words, 4 * nw, db, 0x00))
+        ms = time_ms(lambda: blake2b_rows(words, 4 * nw, db, 0x00))
+        plain = time_ms(lambda: blake2b_rows_plain(words, 4 * nw, db, 0x00),
+                        reps=1, warmup=0)
+        log(f"  blake2b_rows salted zk leaves 2^{k + 2} x 608 B err {err} kernel "
+            f"{ms:.4f} ms plain {plain:.2f} ms")
+        if err:
+            raise AssertionError("blake2b_rows (salted leaves) disagrees with "
+                                 "its twin")
 
     for r in rows:
-        log(f"  {r['name']:13s} {r['shape']:40s} err {r['max_abs_err']} "
-            f"kernel {r['ms']:.4f} ms  plain {r['plain_ms']:.2f} ms  "
-            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-        if r["max_abs_err"] != 0:
-            raise AssertionError(f"{r['name']} disagrees with its plain twin")
+        r["field"] = F.name
+        report(r)
     return rows
+
+
+def report(r):
+    """Log a kernel row; fail if the kernel disagreed with its twin."""
+    log(f"  {r['name']:13s} {r['field']:12s} {r['shape']:44s} err "
+        f"{r['max_abs_err']} kernel {r['ms']:.4f} ms  plain "
+        f"{r['plain_ms']:.2f} ms  bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']})")
+    if r["max_abs_err"] != 0:
+        raise AssertionError(f"{r['name']} ({r['field']}) disagrees with its "
+                             "plain twin")
 
 
 def device_time_breakdown(fn, top=12):
@@ -447,6 +514,83 @@ def golden(F, dev):
             "rejected")
 
 
+def golden_poseidon(dev):
+    """Phase 4, continued: the JAX package's Poseidon Aurora configuration
+    over alt_bn128_Fr proven on the card, in its three pinned cases."""
+    F = alt_bn128_fr()
+    cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
+                                             np.random.default_rng(77))
+    for case, (hash_name, make_zk, want) in sorted(POSEIDON_PINS.items()):
+        params = AuroraSnarkParams(
+            security_parameter=32, RS_extra_dimensions=2,
+            fri_localization_parameter=1, make_zk=make_zk,
+            hash_name=hash_name, override_fri_queries=3,
+            override_fri_interactive_repetitions=1, override_ldt_instances=1)
+        with seeded_salts():
+            blob = aurora_snark_prover(cs, primary, aux, params,
+                                       rng=np.random.default_rng(78),
+                                       device=dev).serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        log(f"  golden {case} sha256 {digest}")
+        if digest != want:
+            raise AssertionError(f"golden {case} transcript differs from the "
+                                 "JAX package's")
+        bad = bytearray(blob)
+        bad[32] ^= 1  # first byte of the first Merkle root
+        wrong = [(primary[0] + 1) % F.p] + list(primary[1:])
+        verdicts = [aurora_snark_verifier(cs, prim, BCSTranscript.deserialize(
+            b), params, device=dev) for prim, b in ((primary, blob),
+                                                     (primary, bytes(bad)),
+                                                     (wrong, blob))]
+        if verdicts != [True, False, False]:
+            raise AssertionError(f"golden {case}: verifier gave {verdicts} "
+                                 "for (proof, flipped byte, wrong input)")
+        log(f"  {case} verify True; flipped byte rejected; wrong primary "
+            "input rejected")
+
+
+#: the wrappers of K9-K12 as the main path calls them (module, name), the
+#: record key, and the size of a call by which the largest one is kept; a
+#: division is kept twice: the widest (most coefficients) and the deepest
+#: (most blocks of h, which one thread per column walks in turn)
+_RECORDED = [
+    (poly, "horner", "horner", lambda F, coeffs, x: coeffs.numel() * x.shape[1]),
+    (poly, "vanishing_divide", "vanishing_divide", lambda F, f, a, h: f.numel()),
+    (poly, "vanishing_divide", "vanishing_divide_deep",
+     lambda F, f, a, h: f.shape[1] // h),
+    (poly, "vanishing_multiply", "vanishing_multiply",
+     lambda F, f, neg_a, h: f.numel()),
+    (domains, "powers", "powers", lambda F, x, n, start=None: n),
+    (fri, "powers", "powers", lambda F, x, n, start=None: n),
+    (k9, "poseidon_merkle_heap", "poseidon_merkle_heap",
+     lambda bp, elems: elems.numel())]
+
+
+@contextlib.contextmanager
+def kernel_calls(record):
+    """Keep, per record key, the arguments of the largest call of its
+    wrapper in record[key] as (size, args)."""
+    saved = []
+
+    def spy(key, fn, size_of):
+        def recorded(*args):
+            size = size_of(*args)
+            if size > record.get(key, (-1, None))[0]:
+                record[key] = (size, args)
+            return fn(*args)
+        return recorded
+
+    for mod, name, key, size_of in _RECORDED:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, spy(key, fn, size_of))
+    try:
+        yield
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
 @contextlib.contextmanager
 def no_twin_on_cuda():
     """Make every plain twin raise if it is handed a CUDA tensor: on the
@@ -499,18 +643,33 @@ def fused_calls(record):
         runtime.fused_dag = real
 
 
-def main_path(F, dev, cs, primary, aux, make_zk):
-    """Phases 5 and 6: Aurora at bench.py's configuration."""
-    label = "zk_main_path" if make_zk else "main_path"
+#: the kernels a path over BLAKE2b trees does not run, and one over Poseidon.
+#: K6 (lazy_reduce) is on neither: its one main-path caller, the vanishing
+#: division's lazy suffix sums, is K12 now; it stays the reduction of the
+#: sparse product's segment-sum fallback, which these shapes do not take.
+_NOT_ON_PATH = {"blake2b": {"poseidon", "lazy_reduce"},
+                "poseidon": {"blake2b_rows", "lazy_reduce"}}
+
+
+def main_path(F, dev, cs, primary, aux, make_zk, label, hash_name, calls):
+    """Phases 5-7: Aurora at bench.py's configuration over F with the hash
+    ``hash_name``; the largest call of each K9-K12 wrapper lands in calls."""
     params = AuroraSnarkParams(security_parameter=128, RS_extra_dimensions=2,
                                fri_localization_parameter=2, make_zk=make_zk,
-                               pow_bits=20)
+                               hash_name=hash_name, pow_bits=20)
     rng = (lambda: np.random.default_rng(0)) if make_zk else (lambda: None)
     PROFILER.sync = True
+    # the cold prove builds every table of its path, and the peak device
+    # memory counts this path's tensors only: drop the memoized tables and
+    # collect the provers of earlier paths (they sit in reference cycles
+    # with their codewords until the cyclic collector runs)
+    domains.clear_device_tables()
+    gc.collect()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     record = {}
-    with no_twin_on_cuda():
+    with no_twin_on_cuda(), kernel_calls(calls):
         kernels.reset_launch_counts()
         PROFILER.records.clear()
         t0 = time.time()
@@ -550,7 +709,8 @@ def main_path(F, dev, cs, primary, aux, make_zk):
     host_time = host_time_breakdown(
         lambda: aurora_snark_prover(cs, primary, aux, params, rng=rng(),
                                     device=dev))
-    log(json.dumps({"stage": label, "log_n": int(cs.num_constraints).bit_length() - 1,
+    log(json.dumps({"stage": label, "field": F.name, "hash": hash_name,
+                    "log_n": int(cs.num_constraints).bit_length() - 1,
                     "prove_s": prove_s, "warm_prove_s": warm_prove_s,
                     "verify_s": verify_s, "verified": ok,
                     "flipped_byte_rejected": not tampered_ok,
@@ -573,24 +733,26 @@ def main_path(F, dev, cs, primary, aux, make_zk):
     if launches_prove["fused_dag"] != record.get("calls"):
         raise AssertionError(f"{label}: {record.get('calls')} fused DAG calls "
                              f"but {launches_prove['fused_dag']} K8 launches")
+    off_path = _NOT_ON_PATH["blake2b" if hash_name == "blake2b"
+                            else "poseidon"]
     for name, count in launches.items():
-        if count <= 0:
+        if count <= 0 and name not in off_path:
             raise AssertionError(f"kernel {name} was not launched on {label}")
     return launches, launches_prove, record
 
 
 def check_fused_dag(F, record):
-    """K8 against its twin on the largest DAG of the zk main path's prove
+    """K8 against its twin on the largest DAG of a zk main path's prove
     (the fri_combine_inputs combination)."""
     tape, inputs, scalars = record["tape"]
     got = fused_dag(F, tape, inputs, scalars)
     want = fused_dag_plain(F, tape, inputs, scalars)
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     n = inputs[0].shape[1]
-    bms, by = bound_ms(ELEM_BYTES * n * (tape.n_inputs + tape.n_outputs),
-                       n * (tape.count(MUL) * MONT_OPS
+    bms, by = bound_ms(elem_bytes(F) * n * (tape.n_inputs + tape.n_outputs),
+                       n * (tape.count(MUL) * mont_ops(F)
                             + (tape.count(ADD) + tape.count(SUB))
-                            * ADDSUB_OPS))
+                            * addsub_ops(F)))
     row = dict(
         name="fused_dag", route="cuda",
         source="libiop_tpu_torch/csrc/fused_dag.cu",
@@ -598,16 +760,126 @@ def check_fused_dag(F, record):
         ms=time_ms(lambda: fused_dag(F, tape, inputs, scalars)),
         plain_ms=time_ms(lambda: fused_dag_plain(F, tape, inputs, scalars),
                          reps=3),
-        bound_ms=bms, bound_by=by, library_ms=None,
+        bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
         shape=(f"{len(tape.ops)} ops ({tape.count(MUL)} mul), "
                f"{tape.n_inputs} inputs, {tape.n_regs} regs, n = 2^"
                f"{n.bit_length() - 1}"))
-    log(f"  {row['name']:13s} {row['shape']:40s} err {err} kernel "
-        f"{row['ms']:.4f} ms  plain {row['plain_ms']:.2f} ms  bound "
-        f"{bms:.4f} ms ({by})")
-    if err:
-        raise AssertionError("fused_dag disagrees with its plain twin")
+    report(row)
     return row
+
+
+def poseidon_work(bp, k: int, n: int):
+    """(products, (wide products, reductions), adds) of a Merkle tree of n
+    leaves of k elements: each leaf ceil(k / rate) permutations and k
+    absorbing adds, each of the n - 1 nodes one permutation and two adds; a
+    permutation's S-boxes (square and multiply over alpha's bits) in every
+    lane of a full round and one lane of a partial round, its round-key
+    adds, and its mix: the MDS mat-vec as t^2 wide products summed lazily
+    (t^2 wide adds) and t reductions, or the near-MDS adds (3 for t = 3, 7
+    for t = 4)."""
+    t, rounds = bp.t, bp.full_rounds + bp.partial_rounds
+    sbox = bp.alpha.bit_length() - 1 + bin(bp.alpha).count("1") - 1
+    prods = (bp.full_rounds * t + bp.partial_rounds) * sbox
+    wide = redcs = 0
+    adds = rounds * t
+    if bp.near_mds:
+        adds += rounds * (3 if t == 3 else 7)
+    else:
+        wide, redcs = rounds * t * t, rounds * t
+        adds += rounds * t * t
+    perms = n * -(-k // bp.rate) + (n - 1)
+    return (perms * prods, perms * wide, perms * redcs,
+            perms * adds + n * k + 2 * (n - 1))
+
+
+#: the kernel each record key of _RECORDED belongs to
+_RECORD_KERNEL = {"horner": "horner", "powers": "powers",
+                  "vanishing_divide": "vanishing",
+                  "vanishing_divide_deep": "vanishing",
+                  "vanishing_multiply": "vanishing",
+                  "poseidon_merkle_heap": "poseidon"}
+
+
+def check_recorded(F, calls, launched):
+    """Phase 7: K9-K12 against their twins on the largest call of each that
+    the paths over F made.  ``launched`` holds the kernels those paths
+    launched; each of their record keys must be there (K9's only where a
+    Poseidon path ran), or the comparison would be lost without a sign."""
+    missing = [key for key, name in _RECORD_KERNEL.items()
+               if name in launched and key not in calls]
+    if missing:
+        raise AssertionError(f"{F.name}: no recorded call for {missing}")
+    eb, mo, ao = elem_bytes(F), mont_ops(F), addsub_ops(F)
+    rows = []
+
+    def row(name, source, replaces, err, ms, plain, nbytes, nops, shape):
+        bms, by = bound_ms(nbytes, nops)
+        r = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                 bound_by=by, library_ms=None, field=F.name, shape=shape)
+        report(r)
+        rows.append(r)
+
+    if "poseidon" in launched:
+        bp, elems = calls["poseidon_merkle_heap"][1]
+        _, k, n = elems.shape
+        prods, wide, redcs, adds = poseidon_work(bp, k, n)
+        row("poseidon", "libiop_tpu_torch/csrc/poseidon.cu",
+            "libiop_tpu/bcs/poseidon.py:263",
+            max_abs_err(k9.poseidon_merkle_heap(bp, elems),
+                        k9.poseidon_merkle_heap_plain(bp, elems)),
+            time_ms(lambda: k9.poseidon_merkle_heap(bp, elems)),
+            time_ms(lambda: k9.poseidon_merkle_heap_plain(bp, elems),
+                    reps=1, warmup=0),
+            eb * (k * n + 2 * n),
+            prods * mo + (wide + redcs) * half_mont_ops(F) + adds * ao,
+            f"tree of 2^{n.bit_length() - 1} leaves x {k} elements "
+            f"(alpha {bp.alpha})")
+
+    _, (_, coeffs, x) = calls["horner"]
+    d, k = coeffs.shape[1], x.shape[1]
+    row("horner", "libiop_tpu_torch/csrc/horner.cu",
+        "libiop_tpu/algebra/poly.py:184",
+        max_abs_err(horner(F, coeffs, x), horner_plain(F, coeffs, x)),
+        time_ms(lambda: horner(F, coeffs, x)),
+        time_ms(lambda: horner_plain(F, coeffs, x), reps=1, warmup=0),
+        eb * (d + 2 * k), d * k * (mo + ao),
+        f"d = {d} at {k} points (m, S = {blocking(d)})")
+
+    _, (_, x, n, *start) = calls["powers"]
+    start = start[0] if start else None
+    row("powers", "libiop_tpu_torch/csrc/powers.cu",
+        "libiop_tpu/algebra/domains.py:80",
+        max_abs_err(powers(F, x, n, start), powers_plain(F, x, n, start)),
+        time_ms(lambda: powers(F, x, n, start)),
+        time_ms(lambda: powers_plain(F, x, n, start)),
+        eb * (n + 2), n * mo, f"table of 2^{n.bit_length() - 1}")
+
+    err, ms, plain, nbytes, nops, shape = 0, 0.0, 0.0, 0, 0, []
+    for key in ("vanishing_divide", "vanishing_divide_deep"):
+        _, (_, f, a, h) = calls[key]
+        err = max(err, *(max_abs_err(g, w) for g, w in zip(
+            vanishing_divide(F, f, a, h), vanishing_divide_plain(F, f, a, h))))
+        ms += time_ms(lambda: vanishing_divide(F, f, a, h))
+        plain += time_ms(lambda: vanishing_divide_plain(F, f, a, h), reps=1,
+                         warmup=0)
+        nb = f.shape[1] // h
+        nbytes += eb * 2 * nb * h
+        nops += (nb - 1) * h * (mo + ao)
+        shape.append(f"divide {nb} x 2^{h.bit_length() - 1}")
+    _, (_, g, neg_a, hm) = calls["vanishing_multiply"]
+    err = max(err, max_abs_err(vanishing_multiply(F, g, neg_a, hm),
+                               vanishing_multiply_plain(F, g, neg_a, hm)))
+    ms += time_ms(lambda: vanishing_multiply(F, g, neg_a, hm))
+    plain += time_ms(lambda: vanishing_multiply_plain(F, g, neg_a, hm))
+    d = g.shape[1]
+    nbytes += eb * (2 * d + hm)
+    nops += d * (mo + ao)
+    shape.append(f"multiply {d} by 2^{hm.bit_length() - 1}")
+    shape = ", ".join(shape)
+    row("vanishing", "libiop_tpu_torch/csrc/vanishing.cu",
+        "libiop_tpu/algebra/poly.py:101", err, ms, plain, nbytes, nops, shape)
+    return rows
 
 
 def main():
@@ -632,32 +904,58 @@ def main():
     load_native()
     log(f"  build_s {time.time() - t0:.1f}")
 
-    F = edwards_fr()
+    F, Fb = edwards_fr(), alt_bn128_fr()
     n = 1 << args.log_n
     t0 = time.time()
     cs, primary, aux = generate_r1cs_example(F, n, 15, n - 1,
                                              np.random.default_rng(0))
-    log(f"  example 2^{args.log_n} setup_s {time.time() - t0:.1f}")
+    cs_b, primary_b, aux_b = generate_r1cs_example(Fb, n, 15, n - 1,
+                                                   np.random.default_rng(0))
+    log(f"  examples 2^{args.log_n} setup_s {time.time() - t0:.1f}")
     rng = np.random.default_rng(2024)
     log("phase 3: kernels against their plain twins")
     rows = check_kernels(F, dev, rng, cs)
+    rows += check_kernels(Fb, dev, rng, cs_b, blake2b=False)
 
     log("phase 4: golden transcripts on the card")
     golden(F, dev)
+    golden_poseidon(dev)
 
+    paths = {}
+    calls = {F.name: {}, Fb.name: {}}
     log(f"phase 5: Aurora main path at 2^{args.log_n} constraints")
-    launches, _, _ = main_path(F, dev, cs, primary, aux, make_zk=False)
+    paths["aurora"], _, _ = main_path(F, dev, cs, primary, aux, False,
+                                      "aurora", "blake2b", calls[F.name])
 
     log(f"phase 6: zk Aurora main path at 2^{args.log_n} constraints")
-    zk_launches, _, record = main_path(F, dev, cs, primary, aux, make_zk=True)
+    paths["aurora_zk"], _, record = main_path(
+        F, dev, cs, primary, aux, True, "aurora_zk", "blake2b", calls[F.name])
     rows.append(check_fused_dag(F, record))
     del record
 
-    log("phase 7: results")
+    log(f"phase 7: Aurora over alt_bn128_Fr with Poseidon at "
+        f"2^{args.log_n} constraints, non-zk and zk")
+    paths["aurora_bn128_poseidon"], _, _ = main_path(
+        Fb, dev, cs_b, primary_b, aux_b, False, "aurora_bn128_poseidon",
+        "poseidon", calls[Fb.name])
+    paths["aurora_bn128_poseidon_zk"], _, record = main_path(
+        Fb, dev, cs_b, primary_b, aux_b, True, "aurora_bn128_poseidon_zk",
+        "poseidon", calls[Fb.name])
+    rows.append(check_fused_dag(Fb, record))
+    del record
+    for Fx, names in ((F, ("aurora", "aurora_zk")),
+                      (Fb, ("aurora_bn128_poseidon",
+                            "aurora_bn128_poseidon_zk"))):
+        launched = {k for p in names for k, c in paths[p].items() if c > 0}
+        rows += check_recorded(Fx, calls[Fx.name], launched)
+    del calls
+
+    log("phase 8: results")
     for r in rows:
-        r["launches"] = zk_launches[r["name"]]
-        r["launches_by_path"] = {"aurora": launches[r["name"]],
-                                 "aurora_zk": zk_launches[r["name"]]}
+        main = "aurora_zk" if r["field"] == F.name \
+            else "aurora_bn128_poseidon_zk"
+        r["launches"] = paths[main][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
         r.pop("shape")
     log(smi)
     log(json.dumps({"kernels": rows}))

@@ -3,8 +3,8 @@
 Port of libiop_tpu/algebra/domains.py.  Elements are enumerated in natural
 power order (shift * g^k); a size-c coset inside a domain of size N sits at
 the strided positions j + i*(N/c).  Index arithmetic is host int math; power
-tables are built host-side as numpy arrays (memoized by value) and copied to
-each device once (``device_table``).
+tables are built on the device by kernel K11 (kernels/powers.py) and
+memoized per device (``device_table``).
 """
 from __future__ import annotations
 
@@ -14,41 +14,11 @@ import numpy as np
 import torch
 
 from ..fields.prime import PrimeField
-
-_HOST_POWERS_CACHE: dict = {}
-_HOST_POWERS_CACHE_BYTES = [0]
-_HOST_POWERS_CACHE_CAP = 4 << 30
+from ..kernels.powers import powers
 
 _DEVICE_TABLES: dict = {}
 _DEVICE_TABLES_BYTES = [0]
 _DEVICE_TABLES_CAP = 4 << 30
-
-
-def host_powers(F: PrimeField, x_int: int, n: int, start: int = 1) -> np.ndarray:
-    """[start * x^k, k < n] as a (L, n) Montgomery limb numpy array,
-    memoized by value (field, x, n, start)."""
-    p = F.p
-    key = (F.name, x_int % p, n, start % p)
-    cached = _HOST_POWERS_CACHE.get(key)
-    if cached is not None:
-        return cached
-    eb = 2 * F.L
-    acc = (start % p) * F.R % p
-    x_int %= p
-    buf = bytearray(n * eb)
-    for j in range(n):
-        buf[j * eb:(j + 1) * eb] = acc.to_bytes(eb, "little")
-        acc = acc * x_int % p
-    out = np.frombuffer(bytes(buf), dtype="<u2").reshape(n, F.L).T.astype(
-        np.int32)
-    out.setflags(write=False)
-    while _HOST_POWERS_CACHE_BYTES[0] + out.nbytes > _HOST_POWERS_CACHE_CAP \
-            and _HOST_POWERS_CACHE:
-        old = _HOST_POWERS_CACHE.pop(next(iter(_HOST_POWERS_CACHE)))
-        _HOST_POWERS_CACHE_BYTES[0] -= old.nbytes
-    _HOST_POWERS_CACHE[key] = out
-    _HOST_POWERS_CACHE_BYTES[0] += out.nbytes
-    return out
 
 
 def device_table(key, device, compute) -> torch.Tensor:
@@ -70,29 +40,16 @@ def device_table(key, device, compute) -> torch.Tensor:
     return out
 
 
-def _powers_doubling(F: PrimeField, x: torch.Tensor, n: int) -> torch.Tensor:
-    """[x^0 .. x^(m-1)] (m the first power of two >= n) by log-depth
-    doubling of a device scalar x (L,)."""
-    out = F.ones((1,), x.device)
-    s = x.reshape(F.L, 1)
-    while out.shape[1] < n:
-        out = torch.cat([out, F.mul(out, s)], dim=1)
-        s = F.square(s)
-    return out
+def clear_device_tables():
+    """Drop every memoized device table (they are rebuilt on next use)."""
+    _DEVICE_TABLES.clear()
+    _DEVICE_TABLES_BYTES[0] = 0
 
 
 def device_powers(F: PrimeField, x: torch.Tensor, n: int) -> torch.Tensor:
-    """[x^0, ..., x^(n-1)] as (L, n) Montgomery limbs (n a power of two):
-    A = powers(x, K), B = powers(x^K, n/K), W[jK+i] = B[j]*A[i]."""
-    assert n >= 1 and (n & (n - 1)) == 0
-    if n <= 256:
-        return _powers_doubling(F, x, n)
-    log_n = n.bit_length() - 1
-    K = 1 << (log_n // 2)
-    A = _powers_doubling(F, x, K)
-    xK = F.mul(A[:, -1:], x.reshape(F.L, 1))
-    B = _powers_doubling(F, xK.reshape(F.L), n // K)
-    return F.mul(B[:, :, None], A[:, None, :]).reshape(F.L, n)
+    """[x^0, ..., x^(n-1)] as (L, n) Montgomery limbs for a device element
+    x (L,) (kernel K11 on the card)."""
+    return powers(F, x.contiguous(), n)
 
 
 def bitrev_permutation(n: int) -> np.ndarray:
@@ -137,30 +94,32 @@ class MultiplicativeCoset:
     def num_elements(self) -> int:
         return self.order
 
-    # -- power tables: host numpy (memoized by value), device on request ----
+    # -- power tables, built on the device (K11) and memoized per device ----
     def _table(self, tag, x_int, start, device):
         F = self.field
-        compute = lambda: host_powers(F, x_int, self.order, start)  # noqa: E731
-        if device is None:
-            return compute()
+
+        def compute():
+            x, s = F.from_ints([x_int % F.p, start % F.p], device).T
+            return powers(F, x.contiguous(), self.order, s.contiguous())
+
         return device_table((tag, self._key()), device, compute)
 
-    def generator_powers(self, device=None):
-        """(L, order) g^k (Montgomery): numpy, or a tensor on ``device``."""
+    def generator_powers(self, device):
+        """(L, order) g^k (Montgomery) on ``device``."""
         return self._table("gpow", self.g, 1, device)
 
-    def inverse_generator_powers(self, device=None):
+    def inverse_generator_powers(self, device):
         return self._table("ginv", pow(self.g, self.field.p - 2, self.field.p),
                            1, device)
 
-    def shift_powers(self, device=None):
+    def shift_powers(self, device):
         return self._table("spow", self.shift, 1, device)
 
-    def inverse_shift_powers(self, device=None):
+    def inverse_shift_powers(self, device):
         return self._table("sinv", pow(self.shift, self.field.p - 2,
                                        self.field.p), 1, device)
 
-    def inverse_elements(self, device=None):
+    def inverse_elements(self, device):
         F = self.field
         return self._table("einv", pow(self.g, F.p - 2, F.p),
                            pow(self.shift, F.p - 2, F.p), device)

@@ -4,6 +4,8 @@ division by them, and blocked Horner evaluation.
 Port of libiop_tpu/algebra/poly.py (multiplicative parts).  For a coset H of
 order h and shift s, Z_H(x) = x^h - s^h; its evaluations over another coset
 repeat with period |L|/gcd(|L|, h), so only that short cycle is computed.
+Multiplication and division by Z_H run through kernel K12
+(kernels/vanishing.py) and evaluation through K10 (kernels/horner.py).
 """
 from __future__ import annotations
 
@@ -11,6 +13,8 @@ from math import gcd
 
 import torch
 
+from ..kernels.horner import horner
+from ..kernels.vanishing import vanishing_divide, vanishing_multiply
 from .domains import MultiplicativeCoset, device_powers
 
 
@@ -44,23 +48,18 @@ def vanishing_inverse_evals_over(H: MultiplicativeCoset,
 
 
 def mul_by_vanishing(coeffs: torch.Tensor, H: MultiplicativeCoset):
-    """Coefficients of (x^h - a) * f for f given by ``coeffs`` (L, d)."""
+    """Coefficients of (x^h - a) * f for f given by ``coeffs`` (L, d)
+    (kernel K12 on the card)."""
     F = H.field
-    h = H.order
-    d = coeffs.shape[1]
-    a = pow(H.shift, h, F.p)
-    out = F.zeros((d + h,), coeffs.device)
-    out[:, :d] = F.mul(coeffs, F.scalar((F.p - a) % F.p, coeffs))
-    out[:, h:] = F.add(out[:, h:], coeffs)
-    return out
+    a = pow(H.shift, H.order, F.p)
+    neg_a = F.from_ints([(F.p - a) % F.p], coeffs.device).reshape(F.L)
+    return vanishing_multiply(F, coeffs.contiguous(), neg_a, H.order)
 
 
 def divide_by_vanishing(coeffs: torch.Tensor, H: MultiplicativeCoset):
     """(quotient, remainder) of ``coeffs`` (L, d) by Z_H = x^h - a, widths
-    d-h and h.  With f = sum_j B_j x^{jh}: S_t = sum_{s>=t} a^s B_s,
-    remainder = S_0 and quotient block Q_t = a^{-t-1} S_{t+1}.  The suffix
-    sums are lazy int64 limb sums reduced once (no chunking is needed: int64
-    columns hold 2^47 16-bit terms)."""
+    d-h and h (kernel K12 on the card: synthetic division in x^h, which
+    gives the reference's quotient and remainder)."""
     F = H.field
     h = H.order
     d = coeffs.shape[1]
@@ -71,56 +70,17 @@ def divide_by_vanishing(coeffs: torch.Tensor, H: MultiplicativeCoset):
     nb = -(-d // h)
     if d != nb * h:
         coeffs = torch.cat([coeffs, F.zeros((nb * h - d,), dev)], dim=1)
-    blocks = coeffs.reshape(F.L, nb, h)
-    a = pow(H.shift, h, F.p)
-    a_pows = [1] * nb
-    for j in range(1, nb):
-        a_pows[j] = F.mul_ints(a_pows[j - 1], a)
-    weighted = F.mul(blocks, F.from_ints(a_pows, dev).reshape(F.L, nb, 1))
-    lazy = torch.flip(torch.cumsum(torch.flip(weighted.to(torch.int64), [1]),
-                                   dim=1), [1])
-    S = F.lazy_sum_reduce(lazy)                           # (L, nb, h)
-    rem = S[:, 0, :].contiguous()
-    ainv = F.inv_int(a)
-    ainv_pows = [ainv] * (nb - 1)
-    for t in range(1, nb - 1):
-        ainv_pows[t] = F.mul_ints(ainv_pows[t - 1], ainv)
-    q_blocks = F.mul(S[:, 1:, :].contiguous(),
-                     F.from_ints(ainv_pows, dev).reshape(F.L, nb - 1, 1))
-    quotient = q_blocks.reshape(F.L, (nb - 1) * h)
+    a = F.from_ints([pow(H.shift, h, F.p)], dev).reshape(F.L)
+    quotient, rem = vanishing_divide(F, coeffs.contiguous(), a, h)
     return quotient[:, :d - h].contiguous(), rem
 
 
-#: degree above which evaluation uses the blocked sqrt(d) decomposition
-_HORNER_BLOCK_THRESHOLD = 256
-
-
 def horner_eval(F, coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Evaluate the polynomial ``coeffs`` (L, d) at points x (L,) or (L, k).
-    Large degrees use p(x) = sum_s x^{ms} q_s(x) with m ~ sqrt(d) chunks
-    evaluated together, then an S-step Horner in x^m."""
+    """Evaluate the polynomial ``coeffs`` (L, d) at points x (L,) or (L, k)
+    (kernel K10 on the card).  Large degrees use p(x) = sum_s x^{ms} q_s(x)
+    with m ~ sqrt(d) chunks evaluated together, then an S-step Horner in
+    x^m."""
     single = x.ndim == 1
-    if single:
-        x = x[:, None]
-    k = x.shape[1]
-    d = coeffs.shape[1]
-    dev = x.device
-    if d <= _HORNER_BLOCK_THRESHOLD:
-        acc = F.zeros((k,), dev)
-        for j in range(d - 1, -1, -1):
-            acc = F.add(F.mul(acc, x), coeffs[:, j:j + 1])
-        return acc[:, 0] if single else acc
-    m = 1 << ((d - 1).bit_length() + 1) // 2
-    S = -(-d // m)
-    if S * m != d:
-        coeffs = torch.cat([coeffs, F.zeros((S * m - d,), dev)], dim=1)
-    chunks = coeffs.reshape(F.L, S, m)
-    xb = x[:, None, :]
-    acc = F.zeros((S, k), dev)
-    for j in range(m - 1, -1, -1):
-        acc = F.add(F.mul(acc, xb), chunks[:, :, j:j + 1])
-    xm = F.pow_static(x, m)
-    total = F.zeros((k,), dev)
-    for s in range(S - 1, -1, -1):
-        total = F.add(F.mul(total, xm), acc[:, s, :])
-    return total[:, 0] if single else total
+    xs = x[:, None] if single else x
+    out = horner(F, coeffs.contiguous(), xs.contiguous())
+    return out[:, 0] if single else out

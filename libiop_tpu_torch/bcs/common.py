@@ -1,6 +1,8 @@
-"""Shared BCS machinery: parameters, the device leaf pipeline, leaf
+"""Shared BCS machinery: parameters, the BLAKE2b device leaf pipeline, leaf
 serialization and the transcript (port of libiop_tpu/bcs/common.py,
-multiplicative BLAKE2b branch, zk salts included).
+multiplicative branch: BLAKE2b and Poseidon trees, zk salts included; each
+hash suite builds its trees through its ``device_leaf_digests``, the
+Poseidon one in bcs/poseidon.py).
 
 Leaf layout (bcs_common.tcc:646-676): with coset size c over a domain of size
 N, leaf j holds, for each oracle in ascending id order, the values at
@@ -17,22 +19,34 @@ import torch
 
 from ..kernels.blake2b import blake2b_rows, digest_rows_to_bytes, merkle_heap
 from .hashing import Blake2bHashchain, Blake2bHashing
+from .poseidon import PoseidonHashchain, PoseidonHashing
 from .pow import PowParameters
+
+#: the algebraic hashes (hash_enum.hpp:21-27): Cauchy-MDS alpha 5, and the
+#: near-MDS alpha 17 variant
+POSEIDON_HASHES = ("poseidon", "poseidon_high_alpha")
 
 
 @dataclasses.dataclass
 class BCSParameters:
     security_bits: int = 128
+    #: "blake2b" | "poseidon" | "poseidon_high_alpha"
     hash_name: str = "blake2b"
     pow_bits: int = 0
 
-    def make_hasher(self) -> Blake2bHashing:
+    def make_hasher(self, field):
+        """The leaf / two-to-one hash suite; Poseidon works over ``field``."""
+        if self.hash_name in POSEIDON_HASHES:
+            return PoseidonHashing(field, self.security_bits,
+                                   variant=self.hash_name)
         if self.hash_name != "blake2b":
-            raise NotImplementedError(
-                f"hash {self.hash_name!r} is not ported yet (BLAKE2b only)")
+            raise ValueError(f"unknown hash {self.hash_name!r}")
         return Blake2bHashing(self.security_bits)
 
-    def make_hashchain(self, field) -> Blake2bHashchain:
+    def make_hashchain(self, field):
+        if self.hash_name in POSEIDON_HASHES:
+            return PoseidonHashchain(field, self.security_bits,
+                                     variant=self.hash_name)
         return Blake2bHashchain(field, self.security_bits)
 
     def make_pow(self) -> PowParameters:

@@ -9,7 +9,11 @@ serialized canonically (little-endian 16-bit limbs).
 from __future__ import annotations
 
 import hashlib
-from typing import List, Sequence
+from typing import List, Optional, Sequence
+
+import torch
+
+from ..kernels.blake2b import digest_rows_to_bytes
 
 DOMAIN_SEP = b"libiop-tpu/bcs/v1/"
 LEAF_TAG = b"\x00"
@@ -35,6 +39,23 @@ class Blake2bHashing:
 
     def two_to_one(self, left: bytes, right: bytes) -> bytes:
         return blake2b(NODE_TAG + left + right, self.digest_bytes)
+
+    def heap_digests(self, heap: torch.Tensor, ids: Sequence[int]
+                     ) -> List[bytes]:
+        """Host bytes of the nodes ``ids`` of a device heap (2n, dw) of
+        digest words (kernels/blake2b.py merkle_heap)."""
+        idx = torch.as_tensor(list(ids), dtype=torch.int64, device=heap.device)
+        return digest_rows_to_bytes(heap.index_select(0, idx),
+                                    self.digest_bytes)
+
+    def device_leaf_digests(self, F, oracle_evals_list, domain,
+                            coset_size: int, salts: Optional[bytes] = None):
+        """Device tree of a (round, domain): BLAKE2b leaves and levels
+        through K3 (bcs.common.device_leaf_digests, which imports this
+        module).  Returns (root bytes, heap, DeviceLeafBlocks)."""
+        from .common import device_leaf_digests
+        return device_leaf_digests(F, oracle_evals_list, domain, coset_size,
+                                   self.digest_bytes, salts=salts)
 
 
 class Blake2bHashchain:

@@ -2,10 +2,11 @@
 (port of libiop_tpu/bcs/merkle.py, device-built trees).
 
 A tree commits to all oracles of one (round, domain); its every level is
-hashed on the device (kernels/blake2b.py) into a heap with the root at
-index 1.  Multi-proofs emit only the sibling digests not derivable from the
-queried set (merkle_tree.tcc:244-337); the verifier mirrors the walk on the
-host (merkle_tree.tcc:339-470).  A zk tree hashes each leaf block with a
+hashed on the device (K3 BLAKE2b, kernels/blake2b.py, or K9 Poseidon,
+kernels/poseidon.py) into a heap with the root at index 1.  Multi-proofs
+emit only the sibling digests not derivable from the queried set
+(merkle_tree.tcc:244-337); the verifier mirrors the walk on the host
+(merkle_tree.tcc:339-470).  A zk tree hashes each leaf block with a
 secret salt appended and reveals the salts of the queried leaves.
 """
 from __future__ import annotations
@@ -14,12 +15,13 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..kernels.blake2b import digest_rows_to_bytes
-from .hashing import Blake2bHashing
-
 
 class MerkleTree:
-    def __init__(self, hasher: Blake2bHashing, num_leaves: int,
+    """A device-built tree: ``heap`` is the hasher's heap layout (BLAKE2b:
+    (2n, dw) digest words; Poseidon: (L, 2n) Montgomery digests) and
+    ``hasher.heap_digests`` turns its nodes into digest bytes."""
+
+    def __init__(self, hasher, num_leaves: int,
                  heap: torch.Tensor, root: bytes,
                  salts: Optional[bytes] = None):
         self.hasher = hasher
@@ -64,20 +66,14 @@ class MerkleTree:
             node_ids = sorted(set(parents))
         return ids
 
-    def multi_proof_async(self, positions: Sequence[int]) -> torch.Tensor:
-        """Gather the auxiliary digest rows on the device (no host sync)."""
-        ids = self.aux_node_ids(self.num_leaves, positions)
-        idx = torch.as_tensor(ids, dtype=torch.int64, device=self.heap.device)
-        return self.heap.index_select(0, idx)
-
     def multi_proof(self, positions: Sequence[int]) -> List[bytes]:
         """Pruned auxiliary digests for the (unsorted, possibly duplicated)
-        leaf positions."""
-        return digest_rows_to_bytes(self.multi_proof_async(positions),
-                                    self.hasher.digest_bytes)
+        leaf positions, gathered from the device heap."""
+        return self.hasher.heap_digests(
+            self.heap, self.aux_node_ids(self.num_leaves, positions))
 
 
-def validate_multi_proof(hasher: Blake2bHashing, root: bytes, num_leaves: int,
+def validate_multi_proof(hasher, root: bytes, num_leaves: int,
                          positions: Sequence[int], leaf_blocks: Sequence[bytes],
                          aux: Sequence[bytes],
                          salts: Optional[Sequence[bytes]] = None) -> bool:

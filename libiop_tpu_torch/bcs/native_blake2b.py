@@ -20,6 +20,9 @@ _SO = os.path.join(BUILD_DIR, "libblake2b_batch.so")
 _LIB = None
 _LOCK = threading.Lock()
 
+#: the longest challenge blake2b_pow_solve takes
+MAX_CHALLENGE = 64
+
 
 def _load() -> ctypes.CDLL:
     global _LIB
@@ -48,8 +51,8 @@ def _load() -> ctypes.CDLL:
 def pow_solve(challenge: bytes, work_bits: int) -> int:
     """Smallest nonce with LE64(blake2b_8(b"pow" + challenge + LE64(nonce)))
     below 2^(64 - work_bits)."""
-    if len(challenge) > 64:
-        raise ValueError("pow challenge longer than 64 bytes")
+    if len(challenge) > MAX_CHALLENGE:
+        raise ValueError(f"pow challenge longer than {MAX_CHALLENGE} bytes")
     n = _load().blake2b_pow_solve(challenge, len(challenge),
                                   1 << (64 - work_bits))
     if n == (1 << 64) - 1:

@@ -2,8 +2,10 @@
 libiop_tpu/bcs/prover.py).
 
 ``signal_prover_round_done`` builds one Merkle tree per (round, domain) on
-the device, absorbs roots and messages into the hashchain and squeezes the
-round's verifier randomness; after the last round it grinds the pow.
+the device (BLAKE2b leaves and levels through K3, Poseidon through K9),
+absorbs roots and messages into the hashchain (BLAKE2b or the Poseidon
+sponge) and squeezes the round's verifier randomness; after the last round
+it grinds the pow (BLAKE2b for every hash, as the reference's).
 A tree holding a zk oracle is salted: one ``secrets.token_bytes`` blob per
 such tree, in tree order, as the reference draws it.  ``get_transcript``
 replays every registered query, collects the real-oracle positions per tree
@@ -15,10 +17,8 @@ import secrets
 from typing import Dict, List, Set, Tuple
 
 from ..iop.runtime import IOPProtocol, OracleHandle
-from ..kernels.blake2b import digest_rows_to_bytes
 from ..utils.profiling import PROFILER
-from .common import (BCSParameters, BCSTranscript, DeviceLeafBlocks, MTProof,
-                     device_leaf_digests)
+from .common import BCSParameters, BCSTranscript, MTProof
 from .merkle import MerkleTree
 
 
@@ -26,11 +26,12 @@ class BCSProver(IOPProtocol):
     def __init__(self, field, params: BCSParameters, device):
         super().__init__(field, device)
         self.params = params
-        self.hasher = params.make_hasher()
+        self.hasher = params.make_hasher(field)
         self.hashchain = params.make_hashchain(field)
         self.pow = params.make_pow()
         self.merkle_trees: Dict[Tuple[int, int], MerkleTree] = {}
-        self.mt_leaf_blocks: Dict[Tuple[int, int], DeviceLeafBlocks] = {}
+        # DeviceLeafBlocks (BLAKE2b) or DeviceLeafColumns (Poseidon)
+        self.mt_leaf_blocks: Dict[Tuple[int, int], object] = {}
         self.mt_roots: Dict[Tuple[int, int], bytes] = {}
         self.pow_nonce = 0
 
@@ -54,9 +55,8 @@ class BCSProver(IOPProtocol):
             if any(self.oracle_regs[i].make_zk for i in oracle_ids):
                 salts = secrets.token_bytes(num_leaves * self.hasher.salt_bytes)
             with PROFILER.block(f"leaf_hash_dev_r{rnd}_d{dom_id}"):
-                root, heap, blocks = device_leaf_digests(
-                    self.F, evals, dom, rp.quotient_map_size,
-                    self.hasher.digest_bytes, salts=salts)
+                root, heap, blocks = self.hasher.device_leaf_digests(
+                    self.F, evals, dom, rp.quotient_map_size, salts=salts)
             mt = MerkleTree.from_device_heap(self.hasher, num_leaves, heap,
                                              root, salts=salts)
             self.merkle_trees[(rnd, dom_id)] = mt
@@ -130,8 +130,6 @@ class BCSProver(IOPProtocol):
                 t.mt_proofs[key] = MTProof(
                     positions=positions,
                     leaf_blocks=self.mt_leaf_blocks[key].gather(positions),
-                    aux_digests=digest_rows_to_bytes(
-                        mt.multi_proof_async(positions),
-                        self.hasher.digest_bytes),
+                    aux_digests=mt.multi_proof(positions),
                     salts=mt.reveal_salts(positions) if mt.make_zk else None)
             return t

@@ -27,7 +27,7 @@ class BCSVerifier(IOPProtocol):
                  transcript: BCSTranscript, device):
         super().__init__(field, device)
         self.params = params
-        self.hasher = params.make_hasher()
+        self.hasher = params.make_hasher(field)
         self.hashchain = params.make_hashchain(field)
         self.pow = params.make_pow()
         self.transcript = transcript

@@ -15,8 +15,10 @@
 // adds the product into a canonical accumulator mod p; the canonical sum is
 // unique, so it equals the reference's lazy sum reduced once.
 //
-// Bound on the H100: memory.  Per row, K pairs of 48-byte gathers and 16
-// bytes of plan against ~324 integer instructions per slot; the vec gathers
+// Instantiated for W = 6 (edwards_Fr) and W = 8 (alt_bn128_Fr) words.
+//
+// Bound on the H100: memory.  Per row, K pairs of 8W-byte gathers and 16
+// bytes of plan against one product and one add per slot; the vec gathers
 // are scattered (one thread per row reads columns src[s*K + k]).
 #include <cuda_runtime.h>
 
@@ -24,27 +26,43 @@
 
 namespace {
 
+template <int W>
 __global__ void ell_matvec_kernel(uint32_t* __restrict__ out,
                                   const uint32_t* __restrict__ vals,
                                   size_t nvals,
                                   const long long* __restrict__ entry,
                                   const long long* __restrict__ src,
                                   const uint32_t* __restrict__ vec,
-                                  size_t nvec, size_t S, int K, fp::Params P) {
+                                  size_t nvec, size_t S, int K,
+                                  fp::Params<W> P) {
   const size_t s = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (s >= S) return;
-  uint32_t acc[fp::N32] = {0, 0, 0, 0, 0, 0};
-  uint32_t x[fp::N32], y[fp::N32];
+  uint32_t acc[W], x[W], y[W];
+  fp::set_zero<W>(acc);
   const size_t pad = nvals - 1;  // the zero column
   for (int k = 0; k < K; ++k) {
     const size_t e = (size_t)entry[s * K + k];
     if (e == pad) continue;
-    fp::load(x, vals, nvals, e);
-    fp::load(y, vec, nvec, (size_t)src[s * K + k]);
-    fp::mont_mul(x, x, y, P);
-    fp::add_mod(acc, acc, x, P);
+    fp::load<W>(x, vals, nvals, e);
+    fp::load<W>(y, vec, nvec, (size_t)src[s * K + k]);
+    fp::mont_mul<W>(x, x, y, P);
+    fp::add_mod<W>(acc, acc, x, P);
   }
-  fp::store(out, S, s, acc);
+  fp::store<W>(out, S, s, acc);
+}
+
+template <int W>
+int launch(void* out, const void* vals, long long nvals, const void* entry,
+           const void* src, const void* vec, long long nvec, long long S,
+           int K, const uint32_t* field, void* stream) {
+  const int threads = 128;
+  if (S > 0)
+    ell_matvec_kernel<W><<<(unsigned)((S + threads - 1) / threads), threads,
+                           0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)vals, (size_t)nvals,
+        (const long long*)entry, (const long long*)src, (const uint32_t*)vec,
+        (size_t)nvec, (size_t)S, K, fp::params_from<W>(field));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -52,16 +70,8 @@ __global__ void ell_matvec_kernel(uint32_t* __restrict__ out,
 extern "C" int ell_matvec_launch(void* out, const void* vals, long long nvals,
                                  const void* entry, const void* src,
                                  const void* vec, long long nvec, long long S,
-                                 int K, const uint32_t* field, void* stream) {
-  fp::Params P;
-  for (int j = 0; j < fp::N32; ++j) P.p[j] = field[j];
-  P.n0 = field[fp::N32];
-  const int threads = 128;
-  if (S > 0)
-    ell_matvec_kernel<<<(unsigned)((S + threads - 1) / threads), threads, 0,
-                        (cudaStream_t)stream>>>(
-        (uint32_t*)out, (const uint32_t*)vals, (size_t)nvals,
-        (const long long*)entry, (const long long*)src, (const uint32_t*)vec,
-        (size_t)nvec, (size_t)S, K, P);
-  return (int)cudaGetLastError();
+                                 int K, int words, const uint32_t* field,
+                                 void* stream) {
+  FP_DISPATCH_WORDS(words, launch, out, vals, nvals, entry, src, vec, nvec, S,
+                    K, field, stream)
 }

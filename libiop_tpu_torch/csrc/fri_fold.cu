@@ -16,68 +16,68 @@
 // the reference's lazily-summed fold limb for limb.
 //
 // Bound on the H100: integer instruction throughput.  This design does
-// c^2 + 2c Montgomery products per output (24 at c = 4) against 48 (c + 1)
-// bytes moved.  The fold itself needs far fewer (6 at c = 4): a radix-2
-// inverse mini-NTT whose twiddles of 1 are free, then Horner in
-// y_j = G^-j * x/shift, which also needs only the twiddles G^-j (later work).
+// c^2 + 2c Montgomery products per output (24 at c = 4) against 8W (c + 1)
+// bytes moved (W = 6 or 8 words per element, one instantiation each).  The
+// fold itself needs far fewer (6 at c = 4): a radix-2 inverse mini-NTT whose
+// twiddles of 1 are free, then Horner in y_j = G^-j * x/shift, which also
+// needs only the twiddles G^-j (later work).
 #include <cuda_runtime.h>
 
 #include "field.cuh"
 
 namespace {
 
-template <int C>
+template <int W, int C>
 __global__ void fri_fold_kernel(uint32_t* __restrict__ out,
                                 const uint32_t* __restrict__ v,
                                 const uint32_t* __restrict__ rows,
                                 const uint32_t* __restrict__ winv,
                                 const uint32_t* __restrict__ xpow, size_t N,
-                                fp::Params P) {
+                                fp::Params<W> P) {
   const size_t nc = N / C;
   const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= nc) return;
-  uint32_t vals[C][fp::N32];
+  uint32_t vals[C][W];
 #pragma unroll
-  for (int k = 0; k < C; ++k) fp::load(vals[k], v, N, k * nc + j);
-  uint32_t acc[fp::N32] = {0, 0, 0, 0, 0, 0};
+  for (int k = 0; k < C; ++k) fp::load<W>(vals[k], v, N, k * nc + j);
+  uint32_t acc[W];
+  fp::set_zero<W>(acc);
 #pragma unroll
   for (int t = 0; t < C; ++t) {
-    uint32_t a[fp::N32] = {0, 0, 0, 0, 0, 0};
+    uint32_t a[W];
+    fp::set_zero<W>(a);
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      uint32_t w[fp::N32];
-      fp::load(w, rows, C * C, t * C + k);
-      fp::mont_mul(w, w, vals[k], P);
-      fp::add_mod(a, a, w, P);
+      uint32_t w[W];
+      fp::load<W>(w, rows, C * C, t * C + k);
+      fp::mont_mul<W>(w, w, vals[k], P);
+      fp::add_mod<W>(a, a, w, P);
     }
-    uint32_t w[fp::N32];
-    fp::load(w, winv, N, (j * t) % N);
-    fp::mont_mul(a, a, w, P);
-    fp::load(w, xpow, C, t);
-    fp::mont_mul(a, a, w, P);
-    fp::add_mod(acc, acc, a, P);
+    uint32_t w[W];
+    fp::load<W>(w, winv, N, (j * t) % N);
+    fp::mont_mul<W>(a, a, w, P);
+    fp::load<W>(w, xpow, C, t);
+    fp::mont_mul<W>(a, a, w, P);
+    fp::add_mod<W>(acc, acc, a, P);
   }
-  fp::store(out, nc, j, acc);
+  fp::store<W>(out, nc, j, acc);
 }
 
-template <int C>
-void launch(uint32_t* out, const uint32_t* v, const uint32_t* rows,
-            const uint32_t* winv, const uint32_t* xpow, size_t N,
-            const fp::Params& P, cudaStream_t stream) {
+template <int W, int C>
+void launch_c(uint32_t* out, const uint32_t* v, const uint32_t* rows,
+              const uint32_t* winv, const uint32_t* xpow, size_t N,
+              const fp::Params<W>& P, cudaStream_t stream) {
   const size_t nc = N / C;
   const int threads = 128;
-  fri_fold_kernel<C><<<(unsigned)((nc + threads - 1) / threads), threads, 0,
-                       stream>>>(out, v, rows, winv, xpow, N, P);
+  fri_fold_kernel<W, C><<<(unsigned)((nc + threads - 1) / threads), threads, 0,
+                          stream>>>(out, v, rows, winv, xpow, N, P);
 }
 
-}  // namespace
-
-extern "C" int fri_fold_launch(void* out, const void* v, const void* rows,
-                               const void* winv, const void* xpow, long long N,
-                               int c, const uint32_t* field, void* stream) {
-  fp::Params P;
-  for (int j = 0; j < fp::N32; ++j) P.p[j] = field[j];
-  P.n0 = field[fp::N32];
+template <int W>
+int launch(void* out, const void* v, const void* rows, const void* winv,
+           const void* xpow, long long N, int c, const uint32_t* field,
+           void* stream) {
+  const fp::Params<W> P = fp::params_from<W>(field);
   auto o = (uint32_t*)out;
   auto vv = (const uint32_t*)v;
   auto r = (const uint32_t*)rows;
@@ -85,11 +85,21 @@ extern "C" int fri_fold_launch(void* out, const void* v, const void* rows,
   auto x = (const uint32_t*)xpow;
   auto s = (cudaStream_t)stream;
   switch (c) {
-    case 2: launch<2>(o, vv, r, w, x, (size_t)N, P, s); break;
-    case 4: launch<4>(o, vv, r, w, x, (size_t)N, P, s); break;
-    case 8: launch<8>(o, vv, r, w, x, (size_t)N, P, s); break;
-    case 16: launch<16>(o, vv, r, w, x, (size_t)N, P, s); break;
+    case 2: launch_c<W, 2>(o, vv, r, w, x, (size_t)N, P, s); break;
+    case 4: launch_c<W, 4>(o, vv, r, w, x, (size_t)N, P, s); break;
+    case 8: launch_c<W, 8>(o, vv, r, w, x, (size_t)N, P, s); break;
+    case 16: launch_c<W, 16>(o, vv, r, w, x, (size_t)N, P, s); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int fri_fold_launch(void* out, const void* v, const void* rows,
+                               const void* winv, const void* xpow, long long N,
+                               int c, int words, const uint32_t* field,
+                               void* stream) {
+  FP_DISPATCH_WORDS(words, launch, out, v, rows, winv, xpow, N, c, field,
+                    stream)
 }

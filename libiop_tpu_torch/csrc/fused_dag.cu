@@ -16,19 +16,21 @@
 //   or an output for store), bits 8-19 operand a, bits 20-31 operand b;
 //   operand = kind << 10 | index, kind 0 register, 1 input codeword,
 //   2 scalar.
-// Codewords are (12, n) int32 limb arrays; scalars are 6 32-bit Montgomery
-// limbs in the launch parameters.
+// Codewords are (2W, n) int32 limb arrays; scalars are W 32-bit Montgomery
+// limbs in the launch parameters, at a stride of kMaxWords words so that
+// the parameter block has one layout for both instantiations (W = 6,
+// edwards_Fr; W = 8, alt_bn128_Fr).
 //
 // Design (first, simple): one thread per position interprets the tape: it
-// fetches each operand (a register, 12 limbs of an input at its position,
+// fetches each operand (a register, 2W limbs of an input at its position,
 // or a scalar), runs the field op (field.cuh) and writes a register or,
-// for a store, 12 limbs of an output.  The tape and scalars travel in the
+// for a store, 2W limbs of an output.  The tape and scalars travel in the
 // kernel's parameter space (__grid_constant__, no copy), so a call costs
 // one launch and no host-to-device copy.  The register file is indexed at
 // run time and so lives in local memory (L1-cached).
 //
-// Bound on the H100: memory where the DAG is input-heavy (48 bytes per input
-// codeword element, ~300 integer instructions per product), operations
+// Bound on the H100: memory where the DAG is input-heavy (8W bytes per input
+// codeword element, ~8W^2 integer instructions per product), operations
 // where products dominate.
 #include <cuda_runtime.h>
 
@@ -49,71 +51,77 @@ enum : uint32_t { kReg = 0, kInput = 1, kScalar = 2 };
 struct DagParams {
   const uint32_t* inputs[kMaxInputs];
   uint32_t* outputs[kMaxOutputs];
-  uint32_t scalars[kMaxScalars * fp::N32];
+  uint32_t scalars[kMaxScalars * fp::kMaxWords];
   uint32_t ops[kMaxOps];
   int n_ops;
   long long n;
 };
 
+template <int W>
 struct LaunchParams {
   DagParams d;
-  fp::Params P;
+  fp::Params<W> P;
 };
 
-__device__ __forceinline__ void fetch(uint32_t x[fp::N32], uint32_t operand,
+template <int W>
+__device__ __forceinline__ void fetch(uint32_t x[W], uint32_t operand,
                                       const DagParams& d,
-                                      uint32_t reg[kMaxRegs][fp::N32],
-                                      size_t i) {
+                                      uint32_t reg[kMaxRegs][W], size_t i) {
   const uint32_t kind = operand >> 10, idx = operand & 1023u;
   if (kind == kInput) {
-    fp::load(x, d.inputs[idx], (size_t)d.n, i);
+    fp::load<W>(x, d.inputs[idx], (size_t)d.n, i);
   } else if (kind == kScalar) {
 #pragma unroll
-    for (int j = 0; j < fp::N32; ++j) x[j] = d.scalars[idx * fp::N32 + j];
+    for (int j = 0; j < W; ++j) x[j] = d.scalars[idx * fp::kMaxWords + j];
   } else {
 #pragma unroll
-    for (int j = 0; j < fp::N32; ++j) x[j] = reg[idx][j];
+    for (int j = 0; j < W; ++j) x[j] = reg[idx][j];
   }
 }
 
-__global__ void fused_dag_kernel(const __grid_constant__ LaunchParams lp) {
+template <int W>
+__global__ void fused_dag_kernel(const __grid_constant__ LaunchParams<W> lp) {
   const DagParams& d = lp.d;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (size_t)d.n) return;
-  uint32_t reg[kMaxRegs][fp::N32];
+  uint32_t reg[kMaxRegs][W];
   for (int k = 0; k < d.n_ops; ++k) {
     const uint32_t w = d.ops[k];
     const uint32_t op = w & 3u, dst = (w >> 2) & 63u;
-    uint32_t x[fp::N32], y[fp::N32];
-    fetch(x, (w >> 8) & 0xfffu, d, reg, i);
+    uint32_t x[W], y[W];
+    fetch<W>(x, (w >> 8) & 0xfffu, d, reg, i);
     if (op == kStore) {
-      fp::store(d.outputs[dst], (size_t)d.n, i, x);
+      fp::store<W>(d.outputs[dst], (size_t)d.n, i, x);
       continue;
     }
-    fetch(y, w >> 20, d, reg, i);
+    fetch<W>(y, w >> 20, d, reg, i);
     if (op == kAdd)
-      fp::add_mod(x, x, y, lp.P);
+      fp::add_mod<W>(x, x, y, lp.P);
     else if (op == kSub)
-      fp::sub_mod(x, x, y, lp.P);
+      fp::sub_mod<W>(x, x, y, lp.P);
     else
-      fp::mont_mul(x, x, y, lp.P);
+      fp::mont_mul<W>(x, x, y, lp.P);
 #pragma unroll
-    for (int j = 0; j < fp::N32; ++j) reg[dst][j] = x[j];
+    for (int j = 0; j < W; ++j) reg[dst][j] = x[j];
   }
+}
+
+template <int W>
+int launch(const void* params, const uint32_t* field, void* stream) {
+  LaunchParams<W> lp;
+  lp.d = *(const DagParams*)params;
+  lp.P = fp::params_from<W>(field);
+  if (lp.d.n_ops < 0 || lp.d.n_ops > kMaxOps) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  if (lp.d.n > 0)
+    fused_dag_kernel<W><<<(unsigned)((lp.d.n + threads - 1) / threads),
+                          threads, 0, (cudaStream_t)stream>>>(lp);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-extern "C" int fused_dag_launch(const void* params, const uint32_t* field,
-                                void* stream) {
-  LaunchParams lp;
-  lp.d = *(const DagParams*)params;
-  for (int j = 0; j < fp::N32; ++j) lp.P.p[j] = field[j];
-  lp.P.n0 = field[fp::N32];
-  if (lp.d.n_ops < 0 || lp.d.n_ops > kMaxOps) return (int)cudaErrorInvalidValue;
-  const int threads = 128;
-  if (lp.d.n > 0)
-    fused_dag_kernel<<<(unsigned)((lp.d.n + threads - 1) / threads), threads,
-                       0, (cudaStream_t)stream>>>(lp);
-  return (int)cudaGetLastError();
+extern "C" int fused_dag_launch(const void* params, int words,
+                                const uint32_t* field, void* stream) {
+  FP_DISPATCH_WORDS(words, launch, params, field, stream)
 }

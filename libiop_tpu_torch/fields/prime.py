@@ -1,6 +1,7 @@
 """Prime-field arithmetic in PyTorch: limb-decomposed Montgomery form.
 
-Port of libiop_tpu/fields/prime.py (multiplicative fields only).  A batch of
+Port of libiop_tpu/fields/prime.py (multiplicative fields only): edwards_Fr
+(12 limbs, R = 2^192) and alt_bn128_Fr (16 limbs, R = 2^256).  A batch of
 field elements is a ``torch.int32`` tensor of shape ``(L, *batch)``, limbs
 first, each entry one 16-bit limb: the reference's values and layout, so the
 two packages compare limb for limb.  Values are in Montgomery form
@@ -256,3 +257,10 @@ def edwards_fr() -> PrimeField:
     """181-bit scalar field of the libff 'edwards' curve; 2-adicity 31."""
     p = 1552511030102430251236801561344621993261920897571225601
     return PrimeField(p, "edwards_Fr", generator=19, two_adicity=31)
+
+
+@functools.lru_cache(maxsize=None)
+def alt_bn128_fr() -> PrimeField:
+    """254-bit scalar field of alt_bn128 (BN254); 2-adicity 28."""
+    p = 21888242871839275222246405745257275088548364400416034343698204186575808495617
+    return PrimeField(p, "alt_bn128_Fr", generator=5, two_adicity=28)

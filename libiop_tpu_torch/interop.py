@@ -1,9 +1,9 @@
 """Hand the same state to both packages: numpy arrays and Python ints only.
 
 ``limbs_from_numpy`` / ``limbs_to_numpy`` convert between the reference's
-(L, *batch) uint32 limb arrays and the port's int32 tensors (same values,
-same layout); ``r1cs_from_reference`` rebuilds a constraint system from the
-reference's ``R1CS.constraints`` int triples.
+(L, *batch) uint32 limb arrays (L = 12 or 16) and the port's int32 tensors
+(same values, same layout); ``r1cs_from_reference`` rebuilds a constraint
+system from the reference's ``R1CS.constraints`` int triples.
 """
 from __future__ import annotations
 

@@ -15,12 +15,26 @@ import torch
 
 LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0,
             "field_addsub": 0, "lazy_reduce": 0, "ell_matvec": 0,
-            "fused_dag": 0}
+            "fused_dag": 0, "poseidon": 0, "horner": 0, "powers": 0,
+            "vanishing": 0}
+
+#: 32-bit words per field element that the field kernels are instantiated
+#: for (csrc/field.cuh): 6 for edwards_Fr (L = 12), 8 for alt_bn128_Fr (16)
+KERNEL_WORDS = (6, 8)
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def field_words(F) -> int:
+    """The word count W = L/2 a field kernel is launched with for field F;
+    raises for a limb count no kernel is instantiated for."""
+    if F.L % 2 or F.L // 2 not in KERNEL_WORDS:
+        raise ValueError(f"{F.name}: {F.L} limbs; the CUDA field kernels are "
+                         f"built for {[2 * w for w in KERNEL_WORDS]} limbs")
+    return F.L // 2
 
 
 def check_limbs(name: str, t: torch.Tensor, device: torch.device = None):

@@ -6,12 +6,13 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, build, check_limbs, ptr, raise_on_error, stream_ptr
+from . import (LAUNCHES, build, check_limbs, field_words, ptr,
+               raise_on_error, stream_ptr)
 from ..fields.limbs import lazy_sum_reduce_plain, mul_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + \
     [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 2 + \
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def ell_matvec_plain(F, vals_pad, entry, src, vec, K: int) -> torch.Tensor:
@@ -48,7 +49,7 @@ def ell_matvec(F, vals_pad: torch.Tensor, entry: torch.Tensor,
     out = torch.empty((F.L, S), dtype=torch.int32, device=vals_pad.device)
     fn = build.launcher("ell_matvec", "ell_matvec_launch", _ARGTYPES)
     err = fn(ptr(out), ptr(vals_pad), vals_pad.shape[1], ptr(entry), ptr(src),
-             ptr(vec), vec.shape[1], S, K, F.kernel_params(),
+             ptr(vec), vec.shape[1], S, K, field_words(F), F.kernel_params(),
              stream_ptr(vals_pad.device))
     raise_on_error("ell_matvec", err)
     LAUNCHES["ell_matvec"] += 1

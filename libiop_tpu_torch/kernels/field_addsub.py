@@ -7,12 +7,12 @@ import math
 
 import torch
 
-from . import (LAUNCHES, broadcast_operand, build, check_limbs, ptr,
-               raise_on_error, stream_ptr)
+from . import (LAUNCHES, broadcast_operand, build, check_limbs, field_words,
+               ptr, raise_on_error, stream_ptr)
 from ..fields.limbs import add_plain, sub_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5 + \
-    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 _OPS = {"add": 0, "sub": 1, "neg": 2}
 
@@ -47,7 +47,8 @@ def field_addsub(F, op: str, a: torch.Tensor, b=None) -> torch.Tensor:
     b, (b_div, b_mod) = broadcast_operand(b, out_batch)
     fn = build.launcher("field_addsub", "field_addsub_launch", _ARGTYPES)
     err = fn(ptr(out), ptr(a), ptr(b), n, a_div, a_mod, b_div, b_mod,
-             _OPS[op], F.kernel_params(), stream_ptr(a.device))
+             _OPS[op], field_words(F), F.kernel_params(),
+             stream_ptr(a.device))
     raise_on_error("field_addsub", err)
     LAUNCHES["field_addsub"] += 1
     return out

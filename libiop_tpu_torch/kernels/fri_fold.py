@@ -5,10 +5,12 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, build, check_limbs, ptr, raise_on_error, stream_ptr
+from . import (LAUNCHES, build, check_limbs, field_words, ptr,
+               raise_on_error, stream_ptr)
 from ..fields.limbs import lazy_sum_reduce_plain, mul_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                     ctypes.c_int,
                                      ctypes.c_void_p, ctypes.c_void_p]
 
 
@@ -49,7 +51,7 @@ def fri_fold(F, evals, rows, winv, xpow, c: int) -> torch.Tensor:
     out = torch.empty((F.L, N // c), dtype=torch.int32, device=evals.device)
     fn = build.launcher("fri_fold", "fri_fold_launch", _ARGTYPES)
     err = fn(ptr(out), ptr(evals), ptr(rows), ptr(winv), ptr(xpow), N, c,
-             F.kernel_params(), stream_ptr(evals.device))
+             field_words(F), F.kernel_params(), stream_ptr(evals.device))
     raise_on_error("fri_fold", err)
     LAUNCHES["fri_fold"] += 1
     return out

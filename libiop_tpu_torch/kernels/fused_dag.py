@@ -17,11 +17,14 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from . import LAUNCHES, build, check_limbs, raise_on_error, stream_ptr
+from . import (LAUNCHES, build, check_limbs, field_words, raise_on_error,
+               stream_ptr)
 from ..fields.limbs import add_plain, mul_plain, sub_plain
 
 # limits of the kernel's launch parameters (csrc/fused_dag.cu)
 MAX_INPUTS, MAX_OUTPUTS, MAX_SCALARS, MAX_OPS, MAX_REGS = 32, 4, 48, 192, 16
+#: scalar stride in the launch parameters (fp::kMaxWords)
+MAX_WORDS = 8
 
 ADD, SUB, MUL, STORE = 0, 1, 2, 3
 REG, INPUT, SCALAR = 0, 1, 2
@@ -30,13 +33,13 @@ REG, INPUT, SCALAR = 0, 1, 2
 class _DagParams(ctypes.Structure):
     _fields_ = [("inputs", ctypes.c_void_p * MAX_INPUTS),
                 ("outputs", ctypes.c_void_p * MAX_OUTPUTS),
-                ("scalars", ctypes.c_uint32 * (MAX_SCALARS * 6)),
+                ("scalars", ctypes.c_uint32 * (MAX_SCALARS * MAX_WORDS)),
                 ("ops", ctypes.c_uint32 * MAX_OPS),
                 ("n_ops", ctypes.c_int),
                 ("n", ctypes.c_longlong)]
 
 
-_ARGTYPES = [ctypes.c_void_p] * 3
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,17 +200,17 @@ def fused_dag(F, tape: Tape, inputs: Sequence[torch.Tensor],
         prm.inputs[k] = t.data_ptr()
     for k, t in enumerate(outs):
         prm.outputs[k] = t.data_ptr()
-    L2 = F.L // 2
     for k, v in enumerate(scalars):
         m = (int(v) % F.p) * F.R % F.p
-        for j in range(L2):
-            prm.scalars[k * L2 + j] = (m >> (32 * j)) & 0xffffffff
+        for j in range(F.L // 2):
+            prm.scalars[k * MAX_WORDS + j] = (m >> (32 * j)) & 0xffffffff
     for k, w in enumerate(tape.ops):
         prm.ops[k] = w
     prm.n_ops = len(tape.ops)
     prm.n = n
     fn = build.launcher("fused_dag", "fused_dag_launch", _ARGTYPES)
-    err = fn(ctypes.byref(prm), F.kernel_params(), stream_ptr(dev))
+    err = fn(ctypes.byref(prm), field_words(F), F.kernel_params(),
+             stream_ptr(dev))
     raise_on_error("fused_dag", err)
     LAUNCHES["fused_dag"] += 1
     return outs

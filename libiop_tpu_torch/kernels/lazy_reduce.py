@@ -8,11 +8,11 @@ import math
 
 import torch
 
-from . import LAUNCHES, build, ptr, raise_on_error, stream_ptr
+from . import LAUNCHES, build, field_words, ptr, raise_on_error, stream_ptr
 from ..fields.limbs import lazy_sum_reduce_plain, mont_reduce_wide_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_longlong] + \
-    [ctypes.c_void_p] * 3
+    [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 @functools.lru_cache(maxsize=None)
@@ -44,7 +44,7 @@ def lazy_reduce(F, t: torch.Tensor, montgomery: bool) -> torch.Tensor:
     out = torch.empty((F.L,) + batch, dtype=torch.int32, device=t.device)
     fn = build.launcher("lazy_reduce", "lazy_reduce_launch", _ARGTYPES)
     err = fn(ptr(out), ptr(t), K, n, _consts(F.p, F.L, montgomery),
-             F.kernel_params(), stream_ptr(t.device))
+             field_words(F), F.kernel_params(), stream_ptr(t.device))
     raise_on_error("lazy_reduce", err)
     LAUNCHES["lazy_reduce"] += 1
     return out

@@ -6,12 +6,12 @@ import math
 
 import torch
 
-from . import (LAUNCHES, broadcast_operand, build, check_limbs, ptr,
-               raise_on_error, stream_ptr)
+from . import (LAUNCHES, broadcast_operand, build, check_limbs, field_words,
+               ptr, raise_on_error, stream_ptr)
 from ..fields.limbs import mul_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 5 + \
-    [ctypes.c_void_p, ctypes.c_void_p]
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def mont_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -32,7 +32,7 @@ def mont_mul(F, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     b, (b_div, b_mod) = broadcast_operand(b, out_batch)
     fn = build.launcher("mont_mul", "mont_mul_launch", _ARGTYPES)
     err = fn(ptr(out), ptr(a), ptr(b), n, a_div, a_mod, b_div, b_mod,
-             F.kernel_params(), stream_ptr(a.device))
+             field_words(F), F.kernel_params(), stream_ptr(a.device))
     raise_on_error("mont_mul", err)
     LAUNCHES["mont_mul"] += 1
     return out

@@ -5,11 +5,12 @@ import ctypes
 
 import torch
 
-from . import LAUNCHES, build, check_limbs, ptr, raise_on_error, stream_ptr
+from . import (LAUNCHES, build, check_limbs, field_words, ptr,
+               raise_on_error, stream_ptr)
 from ..fields.limbs import add_plain, mul_plain, sub_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3 + \
-    [ctypes.c_void_p, ctypes.c_void_p]
+    [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def ntt_stage_plain(F, x: torch.Tensor, W: torch.Tensor, m: int) -> torch.Tensor:
@@ -37,7 +38,7 @@ def ntt_stage(F, x: torch.Tensor, W: torch.Tensor, m: int) -> torch.Tensor:
     if x.device.type == "cpu":
         return ntt_stage_plain(F, x, W, m)
     fn = build.launcher("ntt", "ntt_stage_launch", _ARGTYPES)
-    err = fn(ptr(x), ptr(W), rows, N, m, F.kernel_params(),
+    err = fn(ptr(x), ptr(W), rows, N, m, field_words(F), F.kernel_params(),
              stream_ptr(x.device))
     raise_on_error("ntt_stage", err)
     LAUNCHES["ntt_stage"] += 1

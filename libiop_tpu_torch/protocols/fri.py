@@ -14,10 +14,11 @@ from typing import List
 import numpy as np
 import torch
 
-from ..algebra.domains import MultiplicativeCoset, _powers_doubling, device_table
+from ..algebra.domains import MultiplicativeCoset, device_table
 from ..algebra.generic import ifft_known_any
 from ..iop.runtime import IOPProtocol, OracleHandle, RoundParameters
 from ..kernels.fri_fold import fri_fold
+from ..kernels.powers import powers
 from ..utils.profiling import PROFILER
 
 
@@ -107,7 +108,7 @@ def fold_codeword(F, evals: torch.Tensor, domain: MultiplicativeCoset,
                         lambda: _fold_rows(F, eta))
     x_over_shift = F.from_ints([x_int * pow(domain.shift, F.p - 2, F.p) % F.p],
                                dev).reshape(F.L)
-    xpow = _powers_doubling(F, x_over_shift, c)
+    xpow = powers(F, x_over_shift, c)
     return fri_fold(F, evals.contiguous(), rows,
                     domain.inverse_generator_powers(dev), xpow, c)
 

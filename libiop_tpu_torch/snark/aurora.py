@@ -1,5 +1,5 @@
 """Aurora SNARK: the BCS-compiled non-interactive argument (port of
-libiop_tpu/snark/aurora.py, BLAKE2b, zk or not).
+libiop_tpu/snark/aurora.py; BLAKE2b or Poseidon, zk or not).
 
 ``aurora_snark_prover`` / ``aurora_snark_verifier`` take the reference's
 arguments plus ``device=`` (default "cuda"; "cpu" runs the plain PyTorch

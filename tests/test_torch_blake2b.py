@@ -20,7 +20,7 @@ from libiop_tpu_torch.algebra.generic import (element_outside_of_subset,
 from libiop_tpu_torch.bcs import common
 from libiop_tpu_torch.bcs.hashing import Blake2bHashing
 from libiop_tpu_torch.bcs.merkle import MerkleTree, validate_multi_proof
-from libiop_tpu_torch.fields.prime import edwards_fr
+from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.interop import limbs_from_numpy
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows, digest_rows_to_bytes,
                                               merkle_heap)
@@ -141,3 +141,19 @@ def test_multi_proof_round_trip(positions):
     if aux:
         assert not validate_multi_proof(hasher, root, 16, positions, revealed,
                                         aux[:-1])
+
+
+def test_leaf_pipeline_packs_16_limbs():
+    """The BLAKE2b leaf pipeline over alt_bn128_Fr (16 limbs packed into 8
+    words per element): the device blocks are the host serialization and
+    the leaf digests hashlib's."""
+    Fb = alt_bn128_fr()
+    dt = make_domain(Fb, 5, shift=element_outside_of_subset(Fb, 5))
+    rng = np.random.default_rng(16)
+    evals = [Fb.random((32,), rng, "cpu") for _ in range(2)]
+    root, heap, blocks = common.device_leaf_digests(Fb, evals, dt, 2, 32)
+    host = common.serialize_leaf_blocks(Fb, evals, dt, 2)
+    assert blocks.gather(range(16)) == host
+    hasher = Blake2bHashing(128)
+    assert digest_rows_to_bytes(heap[16:], 32) == [hasher.leaf_hash(b)
+                                                   for b in host]

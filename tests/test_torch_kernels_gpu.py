@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
-card, at shapes and broadcast patterns the main path uses.  Marked gpu: each
-test skips without a CUDA device.  Imports nothing of JAX, so it also runs
+card, at shapes and broadcast patterns the main paths use, over edwards_Fr
+(6-word instantiations) and alt_bn128_Fr (8-word).  Marked gpu: each test
+skips without a CUDA device.  Imports nothing of JAX, so it also runs
 on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_kernels_gpu.py
@@ -13,7 +14,7 @@ from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
 from libiop_tpu_torch.bcs import common
 from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,
                                            mont_reduce_wide_plain, mul_plain)
-from libiop_tpu_torch.fields.prime import edwards_fr
+from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.kernels import LAUNCHES
 from libiop_tpu_torch.kernels.blake2b import blake2b_rows, blake2b_rows_plain
 from libiop_tpu_torch.kernels.ell_matvec import ell_matvec, ell_matvec_plain
@@ -25,11 +26,20 @@ from libiop_tpu_torch.kernels.fused_dag import (TapeRecorder, fused_dag,
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce
 from libiop_tpu_torch.kernels.mont_mul import mont_mul
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain
+from libiop_tpu_torch.kernels.horner import horner, horner_plain
+from libiop_tpu_torch.kernels.poseidon import (poseidon_hash_columns,
+                                               poseidon_merkle_heap,
+                                               poseidon_sponge_plain)
+from libiop_tpu_torch.kernels.powers import powers, powers_plain
+from libiop_tpu_torch.kernels.vanishing import (vanishing_divide,
+                                                vanishing_divide_plain,
+                                                vanishing_multiply,
+                                                vanishing_multiply_plain)
 from libiop_tpu_torch.protocols.fri import _fold_rows
-from libiop_tpu_torch.algebra.domains import _powers_doubling
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
 
 pytestmark = pytest.mark.gpu
+FIELDS = {"edwards_Fr": edwards_fr, "alt_bn128_Fr": alt_bn128_fr}
 F = edwards_fr()
 
 
@@ -40,10 +50,16 @@ def dev():
     return torch.device("cuda")
 
 
-def _elems(shape, seed, dev):
+@pytest.fixture(params=sorted(FIELDS))
+def field(request):
+    return FIELDS[request.param]()
+
+
+def _elems(shape, seed, dev, field=None):
+    Fx = field or F
     n = int(np.prod(shape))
-    return F.from_ints(F.random_ints(n, np.random.default_rng(seed)),
-                       dev).reshape((F.L,) + tuple(shape))
+    return Fx.from_ints(Fx.random_ints(n, np.random.default_rng(seed)),
+                        dev).reshape((Fx.L,) + tuple(shape))
 
 
 @pytest.mark.parametrize("shape_a,shape_b", [
@@ -53,8 +69,9 @@ def _elems(shape, seed, dev):
     ((9, 16), (9, 1)),           # broadcast column
     ((4, 1, 8), (1, 6, 1)),      # outer product: materialized operands
 ])
-def test_mont_mul_matches_twin(dev, shape_a, shape_b):
-    a, b = _elems(shape_a, 1, dev), _elems(shape_b, 2, dev)
+def test_mont_mul_matches_twin(dev, field, shape_a, shape_b):
+    F = field
+    a, b = _elems(shape_a, 1, dev, F), _elems(shape_b, 2, dev, F)
     before = LAUNCHES["mont_mul"]
     got = mont_mul(F, a, b)
     torch.cuda.synchronize()
@@ -64,10 +81,11 @@ def test_mont_mul_matches_twin(dev, shape_a, shape_b):
 
 
 @pytest.mark.parametrize("rows,N", [(1, 2), (3, 64), (2, 1 << 12)])
-def test_ntt_stages_match_twin(dev, rows, N):
+def test_ntt_stages_match_twin(dev, field, rows, N):
+    F = field
     dom = MultiplicativeCoset(F, N.bit_length() - 1, 19)
     W = dom.generator_powers(dev)
-    x = _elems((rows, N), 3, dev)
+    x = _elems((rows, N), 3, dev, F)
     y = x.clone()
     m = 1
     while m < N:
@@ -95,12 +113,13 @@ def test_blake2b_rows_match_twin(dev, msg_bytes, digest_bytes, tag):
 
 
 @pytest.mark.parametrize("eta", [1, 2, 3, 4])
-def test_fri_fold_matches_twin(dev, eta):
+def test_fri_fold_matches_twin(dev, field, eta):
+    F = field
     c = 1 << eta
     dom = MultiplicativeCoset(F, 8, 19)
-    evals = _elems((dom.order,), eta, dev)
+    evals = _elems((dom.order,), eta, dev, F)
     rows = torch.from_numpy(_fold_rows(F, eta)).to(dev)
-    xpow = _powers_doubling(F, _elems((1,), 9, dev).reshape(F.L), c)
+    xpow = powers(F, _elems((1,), 9, dev, F).reshape(F.L), c)
     winv = dom.inverse_generator_powers(dev)
     got = fri_fold(F, evals, rows, winv, xpow, c)
     torch.cuda.synchronize()
@@ -111,8 +130,9 @@ def test_fri_fold_matches_twin(dev, eta):
 @pytest.mark.parametrize("shape_a,shape_b", [
     ((1000,), (1000,)), ((777,), (1,)), ((1,), (777,)), ((9, 16), (9, 1)),
     ((4, 1, 8), (1, 6, 1))])
-def test_field_addsub_matches_twin(dev, op, shape_a, shape_b):
-    a, b = _elems(shape_a, 4, dev), _elems(shape_b, 5, dev)
+def test_field_addsub_matches_twin(dev, field, op, shape_a, shape_b):
+    F = field
+    a, b = _elems(shape_a, 4, dev, F), _elems(shape_b, 5, dev, F)
     a[:, 0] = 0                     # 0 - x and -0 hit the borrow edge
     before = LAUNCHES["field_addsub"]
     got = field_addsub(F, op, a, b)
@@ -122,15 +142,17 @@ def test_field_addsub_matches_twin(dev, op, shape_a, shape_b):
                                                else b))
 
 
-@pytest.mark.parametrize("K", [12, 13, 26])
+@pytest.mark.parametrize("K", ["L", "L+1", "2L+2"])
 @pytest.mark.parametrize("montgomery", [False, True])
-def test_lazy_reduce_matches_twin(dev, K, montgomery):
+def test_lazy_reduce_matches_twin(dev, field, K, montgomery):
     """Lazy sums of 4096 canonical values per row (columns near 2^28) and a
-    product accumulator's 26 rows of 2^36-sized columns."""
+    product accumulator's 2L+2 rows of 2^36-sized columns."""
+    F = field
+    K = {"L": F.L, "L+1": F.L + 1, "2L+2": 2 * F.L + 2}[K]
     rng = np.random.default_rng(K)
     n = 513
-    if K == 26:
-        a, b = _elems((n,), 6, dev), _elems((n,), 7, dev)
+    if K == 2 * F.L + 2:
+        a, b = _elems((n,), 6, dev, F), _elems((n,), 7, dev, F)
         t = torch.zeros((K, n), dtype=torch.int64, device=dev)
         for i in range(F.L):
             t[i:i + F.L] += a[i].to(torch.int64) * b.to(torch.int64)
@@ -144,9 +166,10 @@ def test_lazy_reduce_matches_twin(dev, K, montgomery):
     assert torch.equal(got, twin(F, t))
 
 
-def test_ell_matvec_matches_twin(dev):
+def test_ell_matvec_matches_twin(dev, field):
+    F = field
     cs = generate_r1cs_example(F, 256, 15, 255, np.random.default_rng(3))[0]
-    z = _elems((256,), 8, dev)
+    z = _elems((256,), 8, dev, F)
     for M in cs.matrices():
         for tag, seg, src, S in (("mv", M.rows, M.cols, M.num_rows),
                                  ("mvT", M.cols, M.rows, M.num_cols)):
@@ -160,9 +183,10 @@ def test_ell_matvec_matches_twin(dev):
             assert torch.equal(got, ell_matvec_plain(F, vals, e, s, z, K))
 
 
-def test_fused_dag_matches_twin(dev):
+def test_fused_dag_matches_twin(dev, field):
     """A tape with every operand kind, a register reused after its last
     use, a stored input and two roots."""
+    F = field
     n = 3000
     b = TapeRecorder()
     x, y, z = b.input(), b.input(), b.input()
@@ -172,7 +196,7 @@ def test_fused_dag_matches_twin(dev):
     r0 = b.sub(b.mul(acc, acc), x)
     r1 = b.add(b.mul(r0, s1), b.sub(s0, y))
     tape = b.finish([r0, r1, z])
-    inputs = [_elems((n,), 10 + k, dev) for k in range(3)]
+    inputs = [_elems((n,), 10 + k, dev, F) for k in range(3)]
     scalars = [0, F.p - 1]
     before = LAUNCHES["fused_dag"]
     got = fused_dag(F, tape, inputs, scalars)
@@ -201,3 +225,79 @@ def test_salted_leaf_pipeline_matches_host(dev, salt_bytes):
             for k, b in enumerate(host)]
     got = heap[16:].cpu().numpy().astype("<u4")
     assert [got[k].tobytes() for k in range(16)] == want
+
+
+@pytest.mark.parametrize("variant,k,n", [
+    ("poseidon", 2, 1000), ("poseidon", 13, 300), ("poseidon", 25, 64),
+    ("poseidon_high_alpha", 8, 777), ("T4", 5, 100)])
+def test_poseidon_matches_twin(dev, variant, k, n):
+    """K9 over alt_bn128_Fr (the presets, t = 3 and the t = 4 one) against
+    its twin, and a whole Merkle heap; the constants of two parameter sets
+    alternate, so the constant memory is uploaded again between them."""
+    from libiop_tpu_torch.bcs import poseidon_presets as presets
+    from libiop_tpu_torch.bcs.poseidon import BatchedPoseidon, PoseidonParams
+    Fb = alt_bn128_fr()
+    params = PoseidonParams.from_preset(Fb, presets.ALTBN_HIGH_ALPHA_T4) \
+        if variant == "T4" else PoseidonParams.for_field(Fb, variant)
+    bp = BatchedPoseidon(params)
+    other = BatchedPoseidon(PoseidonParams.for_field(Fb, "poseidon_high_alpha"
+                                                     if variant == "poseidon"
+                                                     else "poseidon"))
+    elems = _elems((k, n), 30 + k, dev, Fb)
+    before = LAUNCHES["poseidon"]
+    got = poseidon_hash_columns(bp, elems)
+    poseidon_hash_columns(other, elems)
+    again = poseidon_hash_columns(bp, elems)
+    torch.cuda.synchronize()
+    assert LAUNCHES["poseidon"] == before + 3
+    want = poseidon_sponge_plain(bp, elems)
+    assert torch.equal(got, want) and torch.equal(again, want)
+    leaves = elems[:, :, :64].contiguous()
+    heap = poseidon_merkle_heap(bp, leaves)
+    assert torch.equal(heap, poseidon_merkle_heap(bp, leaves.cpu()).to(dev))
+
+
+def test_poseidon_edwards_matches_twin(dev):
+    from libiop_tpu_torch.bcs.poseidon import BatchedPoseidon, PoseidonParams
+    bp = BatchedPoseidon(PoseidonParams.for_field(F, "poseidon"))
+    elems = _elems((8, 500), 40, dev)
+    got = poseidon_hash_columns(bp, elems)
+    torch.cuda.synchronize()
+    assert torch.equal(got, poseidon_sponge_plain(bp, elems))
+
+
+@pytest.mark.parametrize("d,k", [(1, 3), (37, 5), (256, 8), (257, 4),
+                                 (3000, 64)])
+def test_horner_matches_twin(dev, field, d, k):
+    coeffs = _elems((d,), d, dev, field)
+    x = _elems((k,), d + 1, dev, field)
+    before = LAUNCHES["horner"]
+    got = horner(field, coeffs, x)
+    torch.cuda.synchronize()
+    assert LAUNCHES["horner"] == before + (1 if d <= 256 else 2)
+    assert torch.equal(got, horner_plain(field, coeffs, x))
+
+
+@pytest.mark.parametrize("n", [1, 2, 255, 1 << 12])
+def test_powers_matches_twin(dev, field, n):
+    x = _elems((1,), 50, dev, field).reshape(field.L)
+    start = _elems((1,), 51, dev, field).reshape(field.L)
+    for s in (None, start):
+        got = powers(field, x, n, s)
+        torch.cuda.synchronize()
+        assert torch.equal(got, powers_plain(field, x, n, s))
+
+
+@pytest.mark.parametrize("h,nb,d", [(8, 1, 5), (8, 4, 29), (256, 3, 700),
+                                    (1024, 2, 2048), (16, 300, 100)])
+def test_vanishing_matches_twin(dev, field, h, nb, d):
+    a = _elems((1,), 60, dev, field).reshape(field.L)
+    f = _elems((nb * h,), 61, dev, field)
+    q, r = vanishing_divide(field, f, a, h)
+    torch.cuda.synchronize()
+    qw, rw = vanishing_divide_plain(field, f, a, h)
+    assert torch.equal(q, qw) and torch.equal(r, rw)
+    g = _elems((d,), 62, dev, field)
+    got = vanishing_multiply(field, g, a, h)
+    torch.cuda.synchronize()
+    assert torch.equal(got, vanishing_multiply_plain(field, g, a, h))
