@@ -6,16 +6,16 @@ Phases (any failure exits non-zero and prints no result line):
  1. require a CUDA device; print the card's name and power limit;
  2. build the hand-written kernels from libiop_tpu_torch/csrc (one nvcc per
     source, in parallel) and the native pow solver; print the build seconds;
- 3. hold each field kernel K1-K7 (and K3 on salted zk leaves) against its
-    plain PyTorch twin on the card at the main paths' shapes (exact
-    equality), over edwards_Fr (6-word instantiations) and alt_bn128_Fr
-    (8-word), and time both with CUDA events;
+ 3. hold each field kernel K1-K7 and K13-K15 (and K3 on salted zk leaves)
+    against its plain PyTorch twin on the card at the main paths' shapes
+    (exact equality), over edwards_Fr (6-word instantiations) and
+    alt_bn128_Fr (8-word), and time both with CUDA events;
  4. golden: the Aurora proofs of the reference's golden configuration,
-    non-zk and zk (Merkle salts from a seeded stream), and of its Poseidon
+    non-zk and zk (Merkle salts from a seeded stream), of its Poseidon
     configuration over alt_bn128_Fr (poseidon, poseidon_high_alpha, and
-    poseidon with zk), proven on the card, hash to the JAX package's
-    sha256s; they verify, and a flipped byte or a wrong primary input is
-    rejected;
+    poseidon with zk) and its Ligero proofs (non-zk and zk), proven on the
+    card, hash to the JAX package's sha256s; they verify, and a flipped
+    byte or a wrong primary input is rejected;
  5. main path: Aurora prove + verify at 2^log_n constraints with bench.py's
     configuration over edwards_Fr with BLAKE2b, non-zk; every kernel of the
     path must be launched (count > 0) and no plain twin may run on a CUDA
@@ -24,9 +24,12 @@ Phases (any failure exits non-zero and prints no result line):
     then K8 against its twin on the DAG of its fri_combine_inputs call;
  7. the same two paths over alt_bn128_Fr with Poseidon trees and the
     Poseidon hashchain (hash_name="poseidon"), the same checks, K8 on the
-    zk DAG; then K9-K12 against their twins on the largest input each got
+    zk DAG;
+ 8. Ligero prove + verify at 2^log_n constraints with bench.py's
+    configuration over edwards_Fr with BLAKE2b, non-zk then zk, the same
+    checks; then K9-K15 against their twins on the largest input each got
     on the paths of each field (recorded during the paths);
- 8. print the card's name and power limit, the kernels JSON line, then the
+ 9. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -70,16 +73,24 @@ from libiop_tpu_torch.kernels.horner import (blocking, horner,  # noqa: E402
                                              horner_plain)
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
+from libiop_tpu_torch.kernels import place_columns as k13  # noqa: E402
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain  # noqa: E402
 from libiop_tpu_torch.kernels.powers import powers, powers_plain  # noqa: E402
+from libiop_tpu_torch.kernels.row_dot import row_dot, row_dot_plain  # noqa: E402
+from libiop_tpu_torch.kernels.rs_encode import (rs_encode,  # noqa: E402
+                                                rs_encode_plain)
 from libiop_tpu_torch.kernels.vanishing import (  # noqa: E402
     vanishing_divide, vanishing_divide_plain, vanishing_multiply,
     vanishing_multiply_plain)
-from libiop_tpu_torch.protocols import fri  # noqa: E402
+from libiop_tpu_torch.algebra.domains import MultiplicativeCoset  # noqa: E402
+from libiop_tpu_torch.protocols import common, fri, ligero  # noqa: E402
 from libiop_tpu_torch.relations.examples import generate_r1cs_example  # noqa: E402
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,  # noqa: E402
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
+from libiop_tpu_torch.snark.ligero import (LigeroSnarkParams,  # noqa: E402
+                                           ligero_snark_prover,
+                                           ligero_snark_verifier)
 from libiop_tpu_torch.utils.profiling import PROFILER  # noqa: E402
 
 #: sha256 of the golden transcript, pinned by the JAX package's own test
@@ -103,6 +114,16 @@ POSEIDON_PINS = {
     "poseidon_zk": ("poseidon", True,
                     "50ebc919c82250acc2c1d3183d0bcdc48d4eae4b02410956d9e42011816c12ae"),
 }
+
+#: sha256s of the JAX package's Ligero proofs in its SNARK test
+#: configuration (tests/test_snark_wrappers.py:16: 16 constraints, example
+#: from default_rng(12345), security 32, RS extra 2, pow 2, one
+#: interaction, 4 queries, one LDT instance, prover rng default_rng(7),
+#: salts from default_rng(7)): make_zk -> sha256
+#: (tests/test_torch_ligero.py)
+LIGERO_PINS = {
+    False: "c4bf652076e40e8813bb563eb3d678b2becee3ff4c927807666a11d39b95a3fc",
+    True: "4dcd9d150b81cfdd4494d54776ba96a774b7154b0fa9209cbc4a3ab9997c5aa8"}
 
 # Least-time model of the H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3;
 # 32-bit integer instructions at 64 lanes per SM x 132 SMs x 1.98 GHz boost.
@@ -184,10 +205,11 @@ def random_elems(F, n, rng, dev):
 
 
 def check_kernels(F, dev, rng, cs_main, blake2b=True):
-    """Phase 3: K1-K7 against their twins at the main paths' shapes for
-    cs_main, the main path's constraint system of 2^k constraints (k capped
-    at 16) over F: non-zk codewords of 2^(k+2), zk codewords of 2^(k+4).
-    K3 (BLAKE2b, no field) only with ``blake2b``."""
+    """Phase 3: K1-K7 and K13-K15 against their twins at the main paths'
+    shapes for cs_main, the main path's constraint system of 2^k
+    constraints (k capped at 16) over F: non-zk Aurora codewords of
+    2^(k+2), zk codewords of 2^(k+4), and the row encodes and row sums of
+    Ligero at 2^k.  K3 (BLAKE2b, no field) only with ``blake2b``."""
     rows = []
     k = min(cs_main.num_constraints.bit_length() - 1, 16)
     L = F.L
@@ -209,7 +231,6 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
         shape=f"({L}, 2^{k + 3}) x ({L}, 2^{k + 3})"))
 
     # K2: the k+3 butterfly stages of one NTT of size 2^(k+3)
-    from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
     dim = k + 3
     N = 1 << dim
     dom = MultiplicativeCoset(F, dim, shift=F.multiplicative_generator)
@@ -397,9 +418,89 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
             raise AssertionError("blake2b_rows (salted leaves) disagrees with "
                                  "its twin")
 
+    rows += check_ligero_kernels(F, dev, rng, k)
     for r in rows:
         r["field"] = F.name
         report(r)
+    return rows
+
+
+def check_ligero_kernels(F, dev, rng, k):
+    """Phase 3, continued: K13 against its twin at the Aurora paths'
+    placement (2^k values into 2^k columns) and at a map with sentinels
+    (15/16 of 2^k values), K14 and K15 at Ligero's shapes at 2^k
+    constraints in bench.py's configuration (the witness rows, the zk row
+    blinding oracle), K15 also over 257 and 513 rows, where the 8-word
+    accumulator folds.  K13's row comes from the paths' own call
+    (check_recorded)."""
+    rows = []
+    ELEM_BYTES = elem_bytes(F)
+    n = 1 << k
+    errs = []
+    for nv in (n, n - (n >> 4)):
+        inv = np.full(n, nv, np.int64)
+        inv[rng.permutation(n)[:nv]] = np.arange(nv)
+        inv = torch.from_numpy(inv).to(dev)
+        vals = random_elems(F, nv, rng, dev)
+        errs.append(max_abs_err(k13.place_columns(vals, inv),
+                                k13.place_columns_plain(vals, inv)))
+    log(f"  place_columns ({F.L}, 2^{k}) and ({F.L}, {n - (n >> 4)}) into "
+        f"2^{k} columns errs {errs}")
+    if any(errs):
+        raise AssertionError(f"place_columns ({F.name}) disagrees with its "
+                             "plain twin")
+
+    lp = ligero.LigeroIOPParams(F, 128, 2, 0.1, False, n, n - 1)
+    H = MultiplicativeCoset(F, lp.systematic_domain_dim)
+    D = MultiplicativeCoset(F, lp.codeword_domain_dim,
+                            shift=F.multiplicative_generator)
+    ext = MultiplicativeCoset(F, lp.systematic_domain_dim + 1)
+    R, m, N = lp.num_oracles_input, H.order, D.order
+    e = N // m
+    x = random_elems(F, R * m, rng, dev).reshape(F.L, R, m)
+    xe = random_elems(F, 2 * m, rng, dev).reshape(F.L, 1, 2 * m)
+    err = max(max_abs_err(rs_encode(F, x, H, D), rs_encode_plain(F, x, H, D)),
+              max_abs_err(rs_encode(F, xe, ext, D),
+                          rs_encode_plain(F, xe, ext, D)))
+    # the function's work, not the kernel's (which repeats the
+    # interpolation for each of the e cosets): per row an inverse NTT of
+    # size m, then e NTTs of size m, each after m scalings by
+    # (1/m)(shift g^r)^j, a factor that does not depend on the row (so the
+    # 1/m scaling costs nothing of its own); a butterfly's add and sub
+    lg = m.bit_length() - 1
+    bms, by = bound_ms(ELEM_BYTES * R * (m + N),
+                       R * (((1 + e) * ntt_products(m) + e * m) * mont_ops(F)
+                            + (1 + e) * m * lg * addsub_ops(F)))
+    rows.append(dict(
+        name="rs_encode", route="cuda", source="libiop_tpu_torch/csrc/rs_encode.cu",
+        replaces="libiop_tpu/protocols/ligero.py:86", max_abs_err=err,
+        ms=time_ms(lambda: rs_encode(F, x, H, D)),
+        plain_ms=time_ms(lambda: rs_encode_plain(F, x, H, D)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"{R} rows of 2^{lg} -> 2^{N.bit_length() - 1}"))
+
+    a = random_elems(F, R * N, rng, dev).reshape(F.L, R, N)
+    b = random_elems(F, R * N, rng, dev).reshape(F.L, R, N)
+    c = random_elems(F, R, rng, dev).reshape(F.L, R, 1)
+    errs = [max_abs_err(row_dot(F, a, b), row_dot_plain(F, a, b)),
+            max_abs_err(row_dot(F, a, c), row_dot_plain(F, a, c))]
+    for deep in (257, 513):
+        ad = random_elems(F, deep * 256, rng, dev).reshape(F.L, deep, 256)
+        bd = random_elems(F, deep * 256, rng, dev).reshape(F.L, deep, 256)
+        errs.append(max_abs_err(row_dot(F, ad, bd), row_dot_plain(F, ad, bd)))
+    log(f"  row_dot errs (full, row scalars, 257 and 513 rows) {errs}")
+    # per column R wide products, R wide adds (2W + 1 words) and one
+    # reduction
+    bms, by = bound_ms(ELEM_BYTES * (2 * R * N + N),
+                       N * ((R + 1) * half_mont_ops(F)
+                            + R * 2 * addsub_ops(F)))
+    rows.append(dict(
+        name="row_dot", route="cuda", source="libiop_tpu_torch/csrc/row_dot.cu",
+        replaces="libiop_tpu/protocols/ligero.py:92", max_abs_err=max(errs),
+        ms=time_ms(lambda: row_dot(F, a, b)),
+        plain_ms=time_ms(lambda: row_dot_plain(F, a, b)),
+        bound_ms=bms, bound_by=by, library_ms=None,
+        shape=f"{R} rows x 2^{N.bit_length() - 1}, full b"))
     return rows
 
 
@@ -549,7 +650,42 @@ def golden_poseidon(dev):
             "input rejected")
 
 
-#: the wrappers of K9-K12 as the main path calls them (module, name), the
+def golden_ligero(dev):
+    """Phase 4, continued: the JAX package's Ligero SNARK configuration
+    proven on the card, non-zk and zk."""
+    F = edwards_fr()
+    cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
+                                             np.random.default_rng(12345))
+    for make_zk, want in sorted(LIGERO_PINS.items()):
+        params = LigeroSnarkParams(
+            security_parameter=32, RS_extra_dimensions=2, make_zk=make_zk,
+            pow_bits=2, override_num_interactions=1, override_num_queries=4,
+            override_ldt_instances=1)
+        with seeded_salts():
+            blob = ligero_snark_prover(cs, primary, aux, params,
+                                       rng=np.random.default_rng(7),
+                                       device=dev).serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        tag = "ligero zk" if make_zk else "ligero"
+        log(f"  golden {tag} sha256 {digest}")
+        if digest != want:
+            raise AssertionError(f"golden {tag} transcript differs from the "
+                                 "JAX package's")
+        bad = bytearray(blob)
+        bad[32] ^= 1  # first byte of the first Merkle root
+        wrong = [(primary[0] + 1) % F.p] + list(primary[1:])
+        verdicts = [ligero_snark_verifier(cs, prim, BCSTranscript.deserialize(
+            b), params, device=dev) for prim, b in ((primary, blob),
+                                                     (primary, bytes(bad)),
+                                                     (wrong, blob))]
+        if verdicts != [True, False, False]:
+            raise AssertionError(f"golden {tag}: verifier gave {verdicts} "
+                                 "for (proof, flipped byte, wrong input)")
+        log(f"  {tag} verify True; flipped byte rejected; wrong primary "
+            "input rejected")
+
+
+#: the wrappers of K9-K15 as the main path calls them (module, name), the
 #: record key, and the size of a call by which the largest one is kept; a
 #: division is kept twice: the widest (most coefficients) and the deepest
 #: (most blocks of h, which one thread per column walks in turn)
@@ -563,7 +699,14 @@ _RECORDED = [
     (domains, "powers", "powers", lambda F, x, n, start=None: n),
     (fri, "powers", "powers", lambda F, x, n, start=None: n),
     (k9, "poseidon_merkle_heap", "poseidon_merkle_heap",
-     lambda bp, elems: elems.numel())]
+     lambda bp, elems: elems.numel()),
+    (k13, "place_columns", "place_columns",
+     lambda values, inv: values[..., :1].numel() * (values.shape[-1]
+                                                   + inv.numel())),
+    (ligero, "rs_encode", "rs_encode",
+     lambda F, values, src, dst: values.shape[1] * dst.order),
+    (ligero, "row_dot", "row_dot", lambda F, a, b: a.numel()),
+    (common, "row_dot", "row_dot", lambda F, a, b: a.numel())]
 
 
 @contextlib.contextmanager
@@ -643,84 +786,113 @@ def fused_calls(record):
         runtime.fused_dag = real
 
 
-#: the kernels a path over BLAKE2b trees does not run, and one over Poseidon.
-#: K6 (lazy_reduce) is on neither: its one main-path caller, the vanishing
-#: division's lazy suffix sums, is K12 now; it stays the reduction of the
-#: sparse product's segment-sum fallback, which these shapes do not take.
-_NOT_ON_PATH = {"blake2b": {"poseidon", "lazy_reduce"},
-                "poseidon": {"blake2b_rows", "lazy_reduce"}}
+#: the kernels a path does not run.  K6 (lazy_reduce) is on none: its one
+#: main-path caller, the vanishing division's lazy suffix sums, is K12 now;
+#: it stays the reduction of the sparse product's segment-sum fallback,
+#: which these shapes do not take.  Aurora encodes no rows and sums none;
+#: Ligero folds no codeword (its LDT is the direct one), divides by no
+#: vanishing polynomial, places no columns, and evaluates its LDT's
+#: combination eagerly (K1 and K5), not as a fused DAG.
+_NOT_ON_PATH = {
+    "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"},
+    "aurora_poseidon": {"blake2b_rows", "lazy_reduce", "rs_encode",
+                        "row_dot"},
+    "ligero": {"poseidon", "lazy_reduce", "fri_fold", "fused_dag",
+               "vanishing", "place_columns"}}
+
+AURORA = (aurora_snark_prover, aurora_snark_verifier)
+LIGERO = (ligero_snark_prover, ligero_snark_verifier)
 
 
-def main_path(F, dev, cs, primary, aux, make_zk, label, hash_name, calls):
-    """Phases 5-7: Aurora at bench.py's configuration over F with the hash
-    ``hash_name``; the largest call of each K9-K12 wrapper lands in calls."""
-    params = AuroraSnarkParams(security_parameter=128, RS_extra_dimensions=2,
-                               fri_localization_parameter=2, make_zk=make_zk,
-                               hash_name=hash_name, pow_bits=20)
-    rng = (lambda: np.random.default_rng(0)) if make_zk else (lambda: None)
+def aurora_params(make_zk, hash_name):
+    """bench.py's Aurora configuration (bench.py:74-80)."""
+    return AuroraSnarkParams(security_parameter=128, RS_extra_dimensions=2,
+                             fri_localization_parameter=2, make_zk=make_zk,
+                             hash_name=hash_name, pow_bits=20)
+
+
+def ligero_params(make_zk):
+    """bench.py's Ligero configuration (bench.py:195-240)."""
+    return LigeroSnarkParams(security_parameter=128, RS_extra_dimensions=2,
+                             height_width_ratio=0.1, make_zk=make_zk)
+
+
+def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
+              calls):
+    """Phases 5-8: prove and verify with snark = (prover, verifier) and
+    params over F; the prover's rng is default_rng(seed) (None when seed
+    is None).  Every kernel outside ``off_path`` must be launched; the
+    largest call of each K9-K15 wrapper lands in calls."""
+    prover, verifier = snark
+    make_zk = params.make_zk
+    rng = (lambda: None) if seed is None else (
+        lambda: np.random.default_rng(seed))
     PROFILER.sync = True
     # the cold prove builds every table of its path, and the peak device
     # memory counts this path's tensors only: drop the memoized tables and
     # collect the provers of earlier paths (they sit in reference cycles
-    # with their codewords until the cyclic collector runs)
+    # with their codewords until the cyclic collector runs); what is still
+    # held (the recorded calls of earlier paths) is subtracted
     domains.clear_device_tables()
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
     record = {}
     with no_twin_on_cuda(), kernel_calls(calls):
         kernels.reset_launch_counts()
         PROFILER.records.clear()
         t0 = time.time()
         with fused_calls(record):
-            proof = aurora_snark_prover(cs, primary, aux, params, rng=rng(),
-                                        device=dev)
+            proof = prover(cs, primary, aux, params, rng=rng(), device=dev)
         torch.cuda.synchronize()
         prove_s = time.time() - t0
         launches_prove = dict(kernels.LAUNCHES)
         profile = PROFILER.report()
         blob = proof.serialize()
         t0 = time.time()
-        ok = aurora_snark_verifier(cs, primary,
-                                   BCSTranscript.deserialize(blob), params,
-                                   device=dev)
+        ok = verifier(cs, primary, BCSTranscript.deserialize(blob), params,
+                      device=dev)
         torch.cuda.synchronize()
         verify_s = time.time() - t0
         launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     bad = bytearray(blob)
     bad[32] ^= 1  # first byte of the first Merkle root
-    tampered_ok = aurora_snark_verifier(
-        cs, primary, BCSTranscript.deserialize(bytes(bad)), params,
-        device=dev)
+    tampered_ok = verifier(cs, primary, BCSTranscript.deserialize(bytes(bad)),
+                           params, device=dev)
     # a second prove of the same system (tables and kernels already warm),
     # without block syncs, then a third under torch.profiler for the device
     # time by kernel
     PROFILER.sync = False
     t0 = time.time()
-    blob2 = aurora_snark_prover(cs, primary, aux, params, rng=rng(),
-                                device=dev).serialize()
+    blob2 = prover(cs, primary, aux, params, rng=rng(),
+                   device=dev).serialize()
     torch.cuda.synchronize()
     warm_prove_s = time.time() - t0
     device_time = device_time_breakdown(
-        lambda: aurora_snark_prover(cs, primary, aux, params, rng=rng(),
-                                    device=dev))
+        lambda: prover(cs, primary, aux, params, rng=rng(), device=dev))
     host_time = host_time_breakdown(
-        lambda: aurora_snark_prover(cs, primary, aux, params, rng=rng(),
-                                    device=dev))
-    log(json.dumps({"stage": label, "field": F.name, "hash": hash_name,
+        lambda: prover(cs, primary, aux, params, rng=rng(), device=dev))
+    verify_host_time = host_time_breakdown(
+        lambda: verifier(cs, primary, BCSTranscript.deserialize(blob), params,
+                         device=dev))
+    log(json.dumps({"stage": label, "field": F.name,
+                    "hash": params.hash_name,
                     "log_n": int(cs.num_constraints).bit_length() - 1,
                     "prove_s": prove_s, "warm_prove_s": warm_prove_s,
                     "verify_s": verify_s, "verified": ok,
                     "flipped_byte_rejected": not tampered_ok,
                     "argument_bytes": len(blob),
                     "same_bytes_second_prove": blob2 == blob,
-                    "max_memory_allocated": peak, "launches": launches,
+                    "max_memory_allocated": peak,
+                    "peak_memory_of_path": peak - held, "launches": launches,
                     "launches_prove": launches_prove,
                     "fused_calls_prove": record.get("calls", 0),
                     "warm_prove_device_time": device_time,
                     "warm_prove_host_time": host_time,
+                    "verify_host_time": verify_host_time,
                     "profile": [(d, nm, round(s, 6)) for d, nm, s in profile]}))
     if not ok:
         raise AssertionError(f"{label} proof rejected")
@@ -730,11 +902,9 @@ def main_path(F, dev, cs, primary, aux, make_zk, label, hash_name, calls):
     if (blob2 == blob) == make_zk:
         raise AssertionError(f"{label}: second prove gave "
                              f"{'the same' if make_zk else 'different'} bytes")
-    if launches_prove["fused_dag"] != record.get("calls"):
+    if launches_prove["fused_dag"] != record.get("calls", 0):
         raise AssertionError(f"{label}: {record.get('calls')} fused DAG calls "
                              f"but {launches_prove['fused_dag']} K8 launches")
-    off_path = _NOT_ON_PATH["blake2b" if hash_name == "blake2b"
-                            else "poseidon"]
     for name, count in launches.items():
         if count <= 0 and name not in off_path:
             raise AssertionError(f"kernel {name} was not launched on {label}")
@@ -797,14 +967,19 @@ _RECORD_KERNEL = {"horner": "horner", "powers": "powers",
                   "vanishing_divide": "vanishing",
                   "vanishing_divide_deep": "vanishing",
                   "vanishing_multiply": "vanishing",
-                  "poseidon_merkle_heap": "poseidon"}
+                  "poseidon_merkle_heap": "poseidon",
+                  "place_columns": "place_columns", "rs_encode": "rs_encode",
+                  "row_dot": "row_dot"}
 
 
 def check_recorded(F, calls, launched):
-    """Phase 7: K9-K12 against their twins on the largest call of each that
+    """Phase 8: K9-K15 against their twins on the largest call of each that
     the paths over F made.  ``launched`` holds the kernels those paths
     launched; each of their record keys must be there (K9's only where a
-    Poseidon path ran), or the comparison would be lost without a sign."""
+    Poseidon path ran, K14's and K15's where a Ligero path ran), or the
+    comparison would be lost without a sign.  K9-K13 give the kernels
+    line's rows (K13's with index_select as its library call); K14 and
+    K15, whose rows phase 3 gives, are logged."""
     missing = [key for key, name in _RECORD_KERNEL.items()
                if name in launched and key not in calls]
     if missing:
@@ -879,6 +1054,42 @@ def check_recorded(F, calls, launched):
     shape = ", ".join(shape)
     row("vanishing", "libiop_tpu_torch/csrc/vanishing.cu",
         "libiop_tpu/algebra/poly.py:101", err, ms, plain, nbytes, nops, shape)
+
+    _, (values, inv) = calls["place_columns"]
+    nv, n = values.shape[1], inv.numel()
+    padded = torch.cat([values, values.new_zeros((F.L, 1))], dim=1)
+    # each placed value read once with its int32 position, each column
+    # written once
+    row("place_columns", "libiop_tpu_torch/csrc/place_columns.cu",
+        "libiop_tpu/algebra/generic.py:163",
+        max_abs_err(k13.place_columns(values, inv),
+                    k13.place_columns_plain(values, inv)),
+        time_ms(lambda: k13.place_columns(values, inv)),
+        time_ms(lambda: k13.place_columns_plain(values, inv)),
+        eb * (nv + n) + 4 * nv, 0, f"({F.L}, {nv}) into {n} columns")
+    rows[-1]["library_ms"] = time_ms(lambda: torch.index_select(padded, 1, inv))
+    log(f"  place_columns {F.name:12s} library index_select "
+        f"{rows[-1]['library_ms']:.4f} ms")
+
+    checks = []
+    if "rs_encode" in launched:
+        _, (_, rows_in, src, dst) = calls["rs_encode"]
+        checks.append(("rs_encode", rs_encode, rs_encode_plain,
+                       (F, rows_in, src, dst),
+                       f"{rows_in.shape[1]} rows of {src.order} -> "
+                       f"{dst.order}"))
+    if "row_dot" in launched:
+        _, (_, a, b) = calls["row_dot"]
+        checks.append(("row_dot", row_dot, row_dot_plain, (F, a, b),
+                       f"a {tuple(a.shape)}, b {tuple(b.shape)}"))
+    for name, kernel, plain, args, shape in checks:
+        err = max_abs_err(kernel(*args), plain(*args))
+        log(f"  {name:13s} {F.name:12s} recorded {shape}: err {err} kernel "
+            f"{time_ms(lambda: kernel(*args)):.4f} ms plain "
+            f"{time_ms(lambda: plain(*args)):.2f} ms")
+        if err:
+            raise AssertionError(f"{name} ({F.name}) disagrees with its "
+                                 "plain twin on a path's call")
     return rows
 
 
@@ -920,40 +1131,58 @@ def main():
     log("phase 4: golden transcripts on the card")
     golden(F, dev)
     golden_poseidon(dev)
+    golden_ligero(dev)
 
     paths = {}
     calls = {F.name: {}, Fb.name: {}}
     log(f"phase 5: Aurora main path at 2^{args.log_n} constraints")
-    paths["aurora"], _, _ = main_path(F, dev, cs, primary, aux, False,
-                                      "aurora", "blake2b", calls[F.name])
+    paths["aurora"], _, _ = main_path(
+        F, dev, cs, primary, aux, "aurora", AURORA,
+        aurora_params(False, "blake2b"), None, _NOT_ON_PATH["aurora_blake2b"],
+        calls[F.name])
 
     log(f"phase 6: zk Aurora main path at 2^{args.log_n} constraints")
     paths["aurora_zk"], _, record = main_path(
-        F, dev, cs, primary, aux, True, "aurora_zk", "blake2b", calls[F.name])
+        F, dev, cs, primary, aux, "aurora_zk", AURORA,
+        aurora_params(True, "blake2b"), 0, _NOT_ON_PATH["aurora_blake2b"],
+        calls[F.name])
     rows.append(check_fused_dag(F, record))
     del record
 
     log(f"phase 7: Aurora over alt_bn128_Fr with Poseidon at "
         f"2^{args.log_n} constraints, non-zk and zk")
     paths["aurora_bn128_poseidon"], _, _ = main_path(
-        Fb, dev, cs_b, primary_b, aux_b, False, "aurora_bn128_poseidon",
-        "poseidon", calls[Fb.name])
+        Fb, dev, cs_b, primary_b, aux_b, "aurora_bn128_poseidon", AURORA,
+        aurora_params(False, "poseidon"), None,
+        _NOT_ON_PATH["aurora_poseidon"], calls[Fb.name])
     paths["aurora_bn128_poseidon_zk"], _, record = main_path(
-        Fb, dev, cs_b, primary_b, aux_b, True, "aurora_bn128_poseidon_zk",
-        "poseidon", calls[Fb.name])
+        Fb, dev, cs_b, primary_b, aux_b, "aurora_bn128_poseidon_zk", AURORA,
+        aurora_params(True, "poseidon"), 0, _NOT_ON_PATH["aurora_poseidon"],
+        calls[Fb.name])
     rows.append(check_fused_dag(Fb, record))
     del record
-    for Fx, names in ((F, ("aurora", "aurora_zk")),
-                      (Fb, ("aurora_bn128_poseidon",
-                            "aurora_bn128_poseidon_zk"))):
-        launched = {k for p in names for k, c in paths[p].items() if c > 0}
+
+    log(f"phase 8: Ligero at 2^{args.log_n} constraints, non-zk and zk")
+    for make_zk, label in ((False, "ligero"), (True, "ligero_zk")):
+        paths[label], _, _ = main_path(
+            F, dev, cs, primary, aux, label, LIGERO, ligero_params(make_zk),
+            1, _NOT_ON_PATH["ligero"], calls[F.name])
+    field_paths = {F.name: ("aurora_zk", "ligero_zk", "aurora", "ligero"),
+                   Fb.name: ("aurora_bn128_poseidon_zk",
+                             "aurora_bn128_poseidon")}
+    for Fx in (F, Fb):
+        launched = {k for p in field_paths[Fx.name]
+                    for k, c in paths[p].items() if c > 0}
         rows += check_recorded(Fx, calls[Fx.name], launched)
     del calls
 
-    log("phase 8: results")
+    log("phase 9: results")
     for r in rows:
-        main = "aurora_zk" if r["field"] == F.name \
-            else "aurora_bn128_poseidon_zk"
+        # the row's main path: the first of its field's paths (zk first)
+        # that launched it
+        cands = field_paths[r["field"]]
+        main = next((p for p in cands if paths[p][r["name"]] > 0), cands[0])
+        r["main_path"] = main
         r["launches"] = paths[main][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
         r.pop("shape")

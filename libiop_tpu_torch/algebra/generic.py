@@ -12,6 +12,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..kernels import place_columns as _k13
 from . import poly as mpoly
 from .domains import MultiplicativeCoset, device_table
 from .fft import fft, ifft, ifft_of_known_degree
@@ -46,7 +47,8 @@ def vanishing_eval_int(H, x: int) -> int:
 
 def place_columns(values: torch.Tensor, positions, out_size: int):
     """out[..., positions[k]] = values[..., k], zeros elsewhere, as a gather
-    through the inverse placement with a zero sentinel column."""
+    through the memoized inverse placement, whose sentinel nv marks a zero
+    column (kernel K13 on the card)."""
     nv = values.shape[-1]
     key = ("place", out_size, nv, np.asarray(positions, np.int64).tobytes())
 
@@ -56,9 +58,7 @@ def place_columns(values: torch.Tensor, positions, out_size: int):
         return inv
 
     inv = device_table(key, values.device, _inverse)
-    padded = torch.cat([values, values.new_zeros(values.shape[:-1] + (1,))],
-                       dim=-1)
-    return padded.index_select(-1, inv)
+    return _k13.place_columns(values.contiguous(), inv)
 
 
 def vanishing_evals_over_any(H, L, device):

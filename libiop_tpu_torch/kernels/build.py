@@ -26,7 +26,7 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 #: kernel source stems; each becomes _build/<stem>.so
 SOURCES = ("mont_mul", "ntt", "blake2b", "fri_fold", "field_addsub",
            "lazy_reduce", "ell_matvec", "fused_dag", "poseidon", "horner",
-           "powers", "vanishing")
+           "powers", "vanishing", "place_columns", "rs_encode", "row_dot")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -1,10 +1,25 @@
-"""Common virtual oracles (port of the random linear combination of
+"""Common virtual oracles and linear combinations (port of the random
+linear combination and lazy_linear_combination of
 libiop_tpu/protocols/common.py)."""
 from __future__ import annotations
 
 from typing import List, Optional
 
+import torch
+
 from ..iop.runtime import VirtualOracle
+from ..kernels.row_dot import row_dot
+
+
+def lazy_linear_combination(F, coeff_ints: List[int],
+                            rows: torch.Tensor) -> torch.Tensor:
+    """sum_i c_i * rows[:, i, :] for rows (L, R, N) and R canonical host
+    ints c_i: one row inner product with a scalar per row (kernel K15 on
+    the card: the wide products summed lazily, one reduction)."""
+    assert len(coeff_ints) == rows.shape[1]
+    coeffs = F.from_ints(list(coeff_ints), rows.device).reshape(
+        F.L, len(coeff_ints), 1)
+    return row_dot(F, rows.contiguous(), coeffs)
 
 
 class RandomLinearCombinationOracle(VirtualOracle):

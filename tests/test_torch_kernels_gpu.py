@@ -30,7 +30,11 @@ from libiop_tpu_torch.kernels.horner import horner, horner_plain
 from libiop_tpu_torch.kernels.poseidon import (poseidon_hash_columns,
                                                poseidon_merkle_heap,
                                                poseidon_sponge_plain)
+from libiop_tpu_torch.kernels.place_columns import (place_columns,
+                                                    place_columns_plain)
 from libiop_tpu_torch.kernels.powers import powers, powers_plain
+from libiop_tpu_torch.kernels.row_dot import row_dot, row_dot_plain
+from libiop_tpu_torch.kernels.rs_encode import rs_encode, rs_encode_plain
 from libiop_tpu_torch.kernels.vanishing import (vanishing_divide,
                                                 vanishing_divide_plain,
                                                 vanishing_multiply,
@@ -301,3 +305,69 @@ def test_vanishing_matches_twin(dev, field, h, nb, d):
     got = vanishing_multiply(field, g, a, h)
     torch.cuda.synchronize()
     assert torch.equal(got, vanishing_multiply_plain(field, g, a, h))
+
+
+def test_place_columns_matches_twin(dev):
+    """K13 over both limb counts: a sentinel-only map (every column zero),
+    a full permutation and a partial placement, each with int32 and int64
+    indices."""
+    for field in FIELDS.values():
+        F = field()
+        for kind in ("sentinel_only", "permutation", "partial"):
+            nv, n = (37, 37) if kind == "permutation" else (37, 100)
+            rng = np.random.default_rng(nv + n)
+            values = _elems((3, nv), 70, dev, F)
+            inv = np.full(n, nv, np.int64)
+            if kind == "permutation":
+                inv = rng.permutation(nv)
+            elif kind == "partial":
+                inv[rng.permutation(n)[:nv]] = np.arange(nv)
+            for index_dtype in (torch.int32, torch.int64):
+                idx = torch.from_numpy(inv).to(index_dtype).to(dev)
+                before = LAUNCHES["place_columns"]
+                got = place_columns(values, idx)
+                torch.cuda.synchronize()
+                case = (F.name, kind, index_dtype)
+                assert LAUNCHES["place_columns"] == before + 1, case
+                assert torch.equal(got, place_columns_plain(values, idx)), case
+                assert kind != "sentinel_only" or not got.any(), case
+
+
+def test_rs_encode_matches_twin(dev):
+    """K14 over both widths: |H| = 2^3, 2^10, 2^12 into codewords 2^2 and
+    2^3 times larger, and the zk row blinding oracle's extended domain
+    (2|H|) into 4|H| for |H| = 8 and 2^10."""
+    for field in FIELDS.values():
+        F = field()
+        cases = [(h, e, False) for h in (8, 1 << 10, 1 << 12) for e in (2, 3)]
+        cases += [(h, 2, True) for h in (8, 1 << 10)]
+        for h, e, extended in cases:
+            dim = h.bit_length() - 1
+            src = MultiplicativeCoset(F, dim + extended)
+            L = MultiplicativeCoset(F, dim + e, F.multiplicative_generator)
+            values = _elems((1 if extended else 3, src.order), h + e, dev, F)
+            before = LAUNCHES["rs_encode"]
+            got = rs_encode(F, values, src, L)
+            torch.cuda.synchronize()
+            case = (F.name, h, e, extended)
+            assert LAUNCHES["rs_encode"] == before + 1, case
+            assert torch.equal(got, rs_encode_plain(F, values, src, L)), case
+
+
+def test_row_dot_matches_twin(dev):
+    """K15 over both widths at R = 1, 64, 65, 257, 513 rows (the 8-word
+    accumulator folds every four products), with a full b and with one
+    scalar a row."""
+    N = 1000
+    for field in FIELDS.values():
+        F = field()
+        for R in (1, 64, 65, 257, 513):
+            a = _elems((R, N), R, dev, F)
+            for scalar_rows in (False, True):
+                b = _elems((R, 1 if scalar_rows else N), R + 1, dev, F)
+                before = LAUNCHES["row_dot"]
+                got = row_dot(F, a, b)
+                torch.cuda.synchronize()
+                case = (F.name, R, scalar_rows)
+                assert LAUNCHES["row_dot"] == before + 1, case
+                assert torch.equal(got, row_dot_plain(F, a, b)), case
