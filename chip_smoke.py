@@ -29,7 +29,17 @@ Phases (any failure exits non-zero and prints no result line):
     configuration over edwards_Fr with BLAKE2b, non-zk then zk, the same
     checks; then K9-K15 against their twins on the largest input each got
     on the paths of each field (recorded during the paths);
- 9. print the card's name and power limit, the kernels JSON line, then the
+ 9. Aurora over GF(2^192) (bench.py's aurora_gf192 stage: 15 inputs,
+    security 128, RS extra 2, FRI localization 1, pow 20 bits, example
+    default_rng(0)) at 2^log_n constraints, non-zk, the same checks; the
+    phase-3 checks also hold K16-K19 and K8's GF(2^k) instantiation
+    against their twins (K16 over gf64 and gf192 on 2^20 elements, K17
+    forward and inverse at 2^20, K19 at eta = 1 on 2^20) and phase 4 the
+    additive golden digests (GF(2^64), non-zk and zk);
+10. the same GF(2^192) path with make_zk=True (prover rng default_rng(0)),
+    then K8 on its zk DAG and K18 on the largest and the deepest division
+    and the largest product the binary paths gave it;
+11. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -55,7 +65,20 @@ from libiop_tpu_torch.bcs.common import BCSTranscript  # noqa: E402
 from libiop_tpu_torch.fields import limbs  # noqa: E402
 from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,  # noqa: E402
                                            mont_reduce_wide_plain, mul_plain)
-from libiop_tpu_torch.algebra import domains, poly  # noqa: E402
+from libiop_tpu_torch.algebra import domains, generic, poly  # noqa: E402
+from libiop_tpu_torch.algebra import linearized as alg_linearized  # noqa: E402
+from libiop_tpu_torch.algebra import subspace  # noqa: E402
+from libiop_tpu_torch.fields.binary import gf64, gf192  # noqa: E402
+from libiop_tpu_torch.kernels.additive_fft import (  # noqa: E402
+    additive_fft, additive_fft_plain)
+from libiop_tpu_torch.kernels.fri_fold_additive import (  # noqa: E402
+    fri_fold_additive, fri_fold_additive_plain)
+from libiop_tpu_torch.kernels.gf2k_mul import (  # noqa: E402
+    gf2k_inv, gf2k_inv_plain, gf2k_mul, gf2k_mul_plain, gf2k_square,
+    gf2k_square_plain)
+from libiop_tpu_torch.kernels.linearized import (  # noqa: E402
+    linearized_divide, linearized_divide_plain, linearized_multiply,
+    linearized_multiply_plain)
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
 from libiop_tpu_torch.iop import runtime  # noqa: E402
 from libiop_tpu_torch.kernels import build  # noqa: E402
@@ -125,6 +148,15 @@ LIGERO_PINS = {
     False: "c4bf652076e40e8813bb563eb3d678b2becee3ff4c927807666a11d39b95a3fc",
     True: "4dcd9d150b81cfdd4494d54776ba96a774b7154b0fa9209cbc4a3ab9997c5aa8"}
 
+#: sha256s of the JAX package's additive golden configuration
+#: (tests/test_additive_aurora.py:82-88: GF(2^64), 16 constraints, example
+#: from default_rng(777), prover rng default_rng(0)): non-zk its own pin
+#: ADDITIVE_GOLDEN_SHA256, zk with the salts from default_rng(7)
+#: (tests/test_torch_additive_aurora.py): make_zk -> sha256
+ADDITIVE_PINS = {
+    False: "8a7c80d5983fb537d0c3ea970110ffe7cbdbaf7020e54ea5f4ad3701273981e9",
+    True: "ca0f0a1485857e5bc738f1778561db2a2c453c4c94588c26ed6c8cca5b0958dd"}
+
 # Least-time model of the H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3;
 # 32-bit integer instructions at 64 lanes per SM x 132 SMs x 1.98 GHz boost.
 HBM_BYTES_PER_S = 3.35e12
@@ -154,6 +186,34 @@ def half_mont_ops(F):
 def addsub_ops(F):
     """A W-word add/sub with carry and conditional select: 4 per word."""
     return 4 * (F.L // 2)
+
+
+# 32-bit integer instructions of GF(2^k) operations (k = 32 W), for the
+# cheapest route known here, not the kernels' Horner product:
+def gf_mul_ops(W):
+    """A product as a 4-bit window comb on V = W/2 64-bit words (each
+    64-bit op two 32-bit ones): the 16-entry table of b's nibble multiples
+    (3 shifts of V+1 words at 3 ops a word, 11 XORs of V+1 words), 16
+    nibble positions x V words of a (extract 2, load and XOR V+1 words
+    each), 15 shifts of the 2V-word accumulator (3 a word); then the fold
+    through 4 taps (4 ops a 32-bit word).  484 at W = 2, 1,756 at W = 6."""
+    V = W // 2
+    return 2 * (20 * (V + 1) + 16 * V * (2 + 2 * (V + 1)) + 45 * 2 * V) \
+        + 16 * W
+
+
+def gf_square_ops(W):
+    """A square: spread each 16-bit half (8 ops), then the fold."""
+    return 16 * W + 16 * W
+
+
+def gf_batch_inv_ops(W):
+    """An element's share of a batch inversion (Montgomery's trick: three
+    products an element, one inversion a batch), the least work an
+    inversion of many elements needs; the kernels invert each element by
+    the Itoh-Tsujii chain (k squarings and ~log2(k) + popcount(k-1)
+    products) instead."""
+    return 3 * gf_mul_ops(W)
 
 
 # 12 rounds x 8 G x (6 add64 + 4 xor64 + 3 rot64) at 2 instructions each; the
@@ -194,6 +254,18 @@ def time_ms(fn, setup=None, reps=5, warmup=1):
         if r >= warmup:
             times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds) for one run on the current stream (CUDA
+    events): for a plain twin too slow to run more than once."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def max_abs_err(a, b):
@@ -504,6 +576,106 @@ def check_ligero_kernels(F, dev, rng, k):
     return rows
 
 
+def random_words(F, n, rng, dev):
+    """n uniform GF(2^k) elements as (W, n) words (any k bits are one)."""
+    return torch.from_numpy(rng.integers(0, 1 << 32, size=(F.W, n),
+                                         dtype=np.uint64).astype(np.uint32)
+                            .view(np.int32)).to(dev)
+
+
+#: log2 of the element count of phase 3's binary-field checks
+BINARY_LOG_N = 20
+
+
+def check_binary_kernels(dev, rng):
+    """Phase 3, binary fields: K16 (product, square, inverse) over gf64 and
+    gf192 on (W, 2^20), K17 forward and inverse over a shifted subspace of
+    2^20 and K19 at eta = 1 on 2^20, gf192 (gf64 logged), against their
+    twins, exact.  The kernels line takes the gf192 rows."""
+    rows = []
+    m = BINARY_LOG_N
+    n = 1 << m
+    for F in (gf64(), gf192()):
+        W, eb = F.W, elem_bytes(F)
+        a, b = random_words(F, n, rng, dev), random_words(F, n, rng, dev)
+        a[:, 0] = 0
+        errs = [max_abs_err(gf2k_mul(F, a, b), gf2k_mul_plain(F, a, b)),
+                max_abs_err(gf2k_square(F, a), gf2k_square_plain(F, a)),
+                max_abs_err(gf2k_inv(F, a), gf2k_inv_plain(F, a))]
+        sq_ms = time_ms(lambda: gf2k_square(F, a))
+        inv_ms = time_ms(lambda: gf2k_inv(F, a))
+        sq_bound, _ = bound_ms(2 * eb * n, gf_square_ops(W) * n)
+        inv_bound, _ = bound_ms(2 * eb * n, gf_batch_inv_ops(W) * n)
+        log(f"  gf2k_mul {F.name} (W {W}, 2^{m}): errs (mul, square, inv) "
+            f"{errs}; square {sq_ms:.4f} ms (bound {sq_bound:.4f}), inv "
+            f"{inv_ms:.4f} ms (bound {inv_bound:.4f})")
+        bms, by = bound_ms(3 * eb * n, gf_mul_ops(W) * n)
+        rows.append(dict(
+            name="gf2k_mul", route="cuda",
+            source="libiop_tpu_torch/csrc/gf2k_mul.cu",
+            replaces="libiop_tpu/fields/binary.py:249", max_abs_err=max(errs),
+            ms=time_ms(lambda: gf2k_mul(F, a, b)),
+            plain_ms=time_ms(lambda: gf2k_mul_plain(F, a, b)),
+            bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+            shape=f"mul ({W}, 2^{m}) x ({W}, 2^{m})"))
+
+        # K17: the FFT and the IFFT over x^m + span(x^0..x^(m-1))
+        D = subspace.AffineSubspace(F, m, shift=1 << m)
+        x = random_words(F, n, rng, dev)
+        errs = []
+        for inverse in (False, True):
+            tw, sums = subspace.fft_tables(D, dev, inverse)
+            errs.append(max_abs_err(additive_fft(F, x, tw, sums, inverse),
+                                    additive_fft_plain(F, x, tw, sums,
+                                                       inverse)))
+        tw, sums = subspace.fft_tables(D, dev, False)
+        # per level n twist products and n/2 unwind products; radix passes
+        # of n/4 groups (3 XORs of W words each), m - 1 - j at level j
+        passes = sum(max(0, m - 1 - j) for j in range(m))
+        bms, by = bound_ms(eb * (2 * n + 3 * n),
+                           m * (n + n // 2) * gf_mul_ops(W)
+                           + passes * (n // 4) * 3 * W)
+        log(f"  additive_fft {F.name} 2^{m} errs (fft, ifft) {errs}")
+        rows.append(dict(
+            name="additive_fft", route="cuda",
+            source="libiop_tpu_torch/csrc/additive_fft.cu",
+            replaces="libiop_tpu/algebra/subspace.py:172", max_abs_err=max(errs),
+            ms=time_ms(lambda: additive_fft(F, x, tw, sums, False)),
+            plain_ms=time_ms(lambda: additive_fft_plain(F, x, tw, sums, False),
+                             reps=1, warmup=0),
+            bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+            shape=f"FFT of 2^{m} over a shifted subspace"))
+
+        # K19: eta = 1 at a random point and at a domain element
+        Z = fri.localizer_vanishing(D, 1)
+        offs = fri.coset_vanishing_offsets(D, 1, Z, dev)
+        elems = D.elements(dev)
+        errs = []
+        for pt in (D.element_by_index_int(n // 3), F.random_ints(1, rng)[0]):
+            args = (F, x, elems, offs, pt, Z.eval_at_point_int(pt),
+                    F.inv_int(Z.epsilon), 2)
+            errs.append(max_abs_err(fri_fold_additive(*args),
+                                    fri_fold_additive_plain(*args)))
+        # per element an inversion (batched) and a product, per coset two
+        # products; reads the values, the elements and the offsets, writes
+        # the fold
+        bms, by = bound_ms(eb * (2 * n + n),
+                           n * (gf_batch_inv_ops(W) + gf_mul_ops(W))
+                           + (n // 2) * 2 * gf_mul_ops(W))
+        rows.append(dict(
+            name="fri_fold_additive", route="cuda",
+            source="libiop_tpu_torch/csrc/fri_fold_additive.cu",
+            replaces="libiop_tpu/protocols/fri.py:240", max_abs_err=max(errs),
+            ms=time_ms(lambda: fri_fold_additive(*args)),
+            plain_ms=time_ms(lambda: fri_fold_additive_plain(*args), reps=1,
+                             warmup=0),
+            bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+            shape=f"eta = 1, N = 2^{m} -> 2^{m - 1}"))
+    for r in rows:
+        report(r)
+    return [r for r in rows if r["field"] == gf192().name]
+
+
 def report(r):
     """Log a kernel row; fail if the kernel disagreed with its twin."""
     log(f"  {r['name']:13s} {r['field']:12s} {r['shape']:44s} err "
@@ -685,6 +857,38 @@ def golden_ligero(dev):
             "input rejected")
 
 
+def golden_additive(dev):
+    """Phase 4, continued: the JAX package's additive golden configuration
+    over GF(2^64) proven on the card, non-zk and zk."""
+    F = gf64()
+    cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
+                                             np.random.default_rng(777))
+    for make_zk, want in sorted(ADDITIVE_PINS.items()):
+        params = _golden_params(make_zk)
+        with seeded_salts():
+            blob = aurora_snark_prover(cs, primary, aux, params,
+                                       rng=np.random.default_rng(0),
+                                       device=dev).serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        tag = "additive zk" if make_zk else "additive"
+        log(f"  golden {tag} sha256 {digest}")
+        if digest != want:
+            raise AssertionError(f"golden {tag} transcript differs from the "
+                                 "JAX package's")
+        bad = bytearray(blob)
+        bad[32] ^= 1  # first byte of the first Merkle root
+        wrong = [primary[0] ^ 1] + list(primary[1:])
+        verdicts = [aurora_snark_verifier(cs, prim, BCSTranscript.deserialize(
+            b), params, device=dev) for prim, b in ((primary, blob),
+                                                     (primary, bytes(bad)),
+                                                     (wrong, blob))]
+        if verdicts != [True, False, False]:
+            raise AssertionError(f"golden {tag}: verifier gave {verdicts} "
+                                 "for (proof, flipped byte, wrong input)")
+        log(f"  {tag} verify True; flipped byte rejected; wrong primary "
+            "input rejected")
+
+
 #: the wrappers of K9-K15 as the main path calls them (module, name), the
 #: record key, and the size of a call by which the largest one is kept; a
 #: division is kept twice: the widest (most coefficients) and the deepest
@@ -706,7 +910,13 @@ _RECORDED = [
     (ligero, "rs_encode", "rs_encode",
      lambda F, values, src, dst: values.shape[1] * dst.order),
     (ligero, "row_dot", "row_dot", lambda F, a, b: a.numel()),
-    (common, "row_dot", "row_dot", lambda F, a, b: a.numel())]
+    (common, "row_dot", "row_dot", lambda F, a, b: a.numel()),
+    (alg_linearized, "linearized_divide", "linearized_divide",
+     lambda F, f, terms, h: f.numel()),
+    (alg_linearized, "linearized_divide", "linearized_divide_deep",
+     lambda F, f, terms, h: f.shape[1] // max(1, h // 2)),
+    (generic, "linearized_multiply", "linearized_multiply",
+     lambda F, f, terms, h: f.numel())]
 
 
 @contextlib.contextmanager
@@ -793,22 +1003,32 @@ def fused_calls(record):
 #: Ligero folds no codeword (its LDT is the direct one), divides by no
 #: vanishing polynomial, places no columns, and evaluates its LDT's
 #: combination eagerly (K1 and K5), not as a fused DAG.
+_BINARY_KERNELS = {"gf2k_mul", "additive_fft", "linearized",
+                   "fri_fold_additive"}
 _NOT_ON_PATH = {
-    "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"},
+    "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"}
+    | _BINARY_KERNELS,
     "aurora_poseidon": {"blake2b_rows", "lazy_reduce", "rs_encode",
-                        "row_dot"},
+                        "row_dot"} | _BINARY_KERNELS,
     "ligero": {"poseidon", "lazy_reduce", "fri_fold", "fused_dag",
-               "vanishing", "place_columns"}}
+               "vanishing", "place_columns"} | _BINARY_KERNELS,
+    # over a binary field K16-K19 take the prime kernels' places: products,
+    # power tables, Horner and the sparse products are K16 + torch
+    "aurora_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
+                      "lazy_reduce", "ell_matvec", "poseidon", "horner",
+                      "powers", "vanishing", "rs_encode", "row_dot"}}
 
 AURORA = (aurora_snark_prover, aurora_snark_verifier)
 LIGERO = (ligero_snark_prover, ligero_snark_verifier)
 
 
-def aurora_params(make_zk, hash_name):
-    """bench.py's Aurora configuration (bench.py:74-80)."""
+def aurora_params(make_zk, hash_name, localization=2):
+    """bench.py's Aurora configuration (bench.py:74-80; FRI localization
+    1 for a binary field, bench.py:381-390)."""
     return AuroraSnarkParams(security_parameter=128, RS_extra_dimensions=2,
-                             fri_localization_parameter=2, make_zk=make_zk,
-                             hash_name=hash_name, pow_bits=20)
+                             fri_localization_parameter=localization,
+                             make_zk=make_zk, hash_name=hash_name,
+                             pow_bits=20)
 
 
 def ligero_params(make_zk):
@@ -862,6 +1082,9 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
     bad[32] ^= 1  # first byte of the first Merkle root
     tampered_ok = verifier(cs, primary, BCSTranscript.deserialize(bytes(bad)),
                            params, device=dev)
+    wrong = [F.add_ints(primary[0], 1)] + list(primary[1:])
+    wrong_ok = verifier(cs, wrong, BCSTranscript.deserialize(blob), params,
+                        device=dev)
     # a second prove of the same system (tables and kernels already warm),
     # without block syncs, then a third under torch.profiler for the device
     # time by kernel
@@ -884,6 +1107,7 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
                     "prove_s": prove_s, "warm_prove_s": warm_prove_s,
                     "verify_s": verify_s, "verified": ok,
                     "flipped_byte_rejected": not tampered_ok,
+                    "wrong_input_rejected": not wrong_ok,
                     "argument_bytes": len(blob),
                     "same_bytes_second_prove": blob2 == blob,
                     "max_memory_allocated": peak,
@@ -898,6 +1122,8 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
         raise AssertionError(f"{label} proof rejected")
     if tampered_ok:
         raise AssertionError(f"{label}: tampered proof accepted")
+    if wrong_ok:
+        raise AssertionError(f"{label}: proof accepted for a wrong input")
     # zk proofs draw fresh salts, so only the non-zk bytes repeat
     if (blob2 == blob) == make_zk:
         raise AssertionError(f"{label}: second prove gave "
@@ -919,10 +1145,13 @@ def check_fused_dag(F, record):
     want = fused_dag_plain(F, tape, inputs, scalars)
     err = max(max_abs_err(g, w) for g, w in zip(got, want))
     n = inputs[0].shape[1]
+    if F.kind == "additive":  # a GF(2^k) product; add and sub one XOR a word
+        mul_ops, add_ops = gf_mul_ops(F.W), F.W
+    else:
+        mul_ops, add_ops = mont_ops(F), addsub_ops(F)
     bms, by = bound_ms(elem_bytes(F) * n * (tape.n_inputs + tape.n_outputs),
-                       n * (tape.count(MUL) * mont_ops(F)
-                            + (tape.count(ADD) + tape.count(SUB))
-                            * addsub_ops(F)))
+                       n * (tape.count(MUL) * mul_ops
+                            + (tape.count(ADD) + tape.count(SUB)) * add_ops))
     row = dict(
         name="fused_dag", route="cuda",
         source="libiop_tpu_torch/csrc/fused_dag.cu",
@@ -1093,6 +1322,49 @@ def check_recorded(F, calls, launched):
     return rows
 
 
+def check_binary_recorded(F, calls):
+    """Phase 10: K18 against its twin on the largest and the deepest
+    division (most chunks of h/2, one launch each) and the largest product
+    the binary paths gave it."""
+    missing = [k for k in ("linearized_divide", "linearized_divide_deep",
+                           "linearized_multiply") if k not in calls]
+    if missing:
+        raise AssertionError(f"{F.name}: no recorded call for {missing}")
+    eb, mo = elem_bytes(F), gf_mul_ops(F.W)
+    err, ms, plain, nbytes, nops, shape = 0, 0.0, 0.0, 0, 0, []
+    for key in ("linearized_divide", "linearized_divide_deep"):
+        _, (_, f, terms, h) = calls[key]
+        want, plain_ms = timed_once(
+            lambda: linearized_divide_plain(F, f, terms, h))
+        err = max(err, *(max_abs_err(g, w) for g, w in zip(
+            linearized_divide(F, f, terms, h), want)))
+        ms += time_ms(lambda: linearized_divide(F, f, terms, h))
+        plain += plain_ms
+        d = f.shape[1]
+        # each quotient coefficient: one product and XOR a term below x^h
+        nbytes += eb * 2 * d
+        nops += (d - h) * len(terms) * (mo + F.W)
+        shape.append(f"divide {d} by 2^{h.bit_length() - 1} "
+                     f"({-(-(d - h) // max(1, h // 2))} chunks)")
+    _, (_, g, terms_m, hm) = calls["linearized_multiply"]
+    err = max(err, max_abs_err(linearized_multiply(F, g, terms_m, hm),
+                               linearized_multiply_plain(F, g, terms_m, hm)))
+    ms += time_ms(lambda: linearized_multiply(F, g, terms_m, hm))
+    plain += time_ms(lambda: linearized_multiply_plain(F, g, terms_m, hm))
+    d = g.shape[1]
+    nbytes += eb * (2 * d + hm)
+    nops += d * len(terms_m) * (mo + F.W)
+    shape.append(f"multiply {d} by 2^{hm.bit_length() - 1}")
+    bms, by = bound_ms(nbytes, nops)
+    r = dict(name="linearized", route="cuda",
+             source="libiop_tpu_torch/csrc/linearized.cu",
+             replaces="libiop_tpu/algebra/linearized.py:88", max_abs_err=err,
+             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+             library_ms=None, field=F.name, shape=", ".join(shape))
+    report(r)
+    return [r]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--log_n", type=int, default=16)
@@ -1122,19 +1394,24 @@ def main():
                                              np.random.default_rng(0))
     cs_b, primary_b, aux_b = generate_r1cs_example(Fb, n, 15, n - 1,
                                                    np.random.default_rng(0))
+    Fg = gf192()
+    cs_g, primary_g, aux_g = generate_r1cs_example(Fg, n, 15, n - 1,
+                                                   np.random.default_rng(0))
     log(f"  examples 2^{args.log_n} setup_s {time.time() - t0:.1f}")
     rng = np.random.default_rng(2024)
     log("phase 3: kernels against their plain twins")
     rows = check_kernels(F, dev, rng, cs)
     rows += check_kernels(Fb, dev, rng, cs_b, blake2b=False)
+    rows += check_binary_kernels(dev, rng)
 
     log("phase 4: golden transcripts on the card")
     golden(F, dev)
     golden_poseidon(dev)
     golden_ligero(dev)
+    golden_additive(dev)
 
     paths = {}
-    calls = {F.name: {}, Fb.name: {}}
+    calls = {F.name: {}, Fb.name: {}, Fg.name: {}}
     log(f"phase 5: Aurora main path at 2^{args.log_n} constraints")
     paths["aurora"], _, _ = main_path(
         F, dev, cs, primary, aux, "aurora", AURORA,
@@ -1174,9 +1451,25 @@ def main():
         launched = {k for p in field_paths[Fx.name]
                     for k, c in paths[p].items() if c > 0}
         rows += check_recorded(Fx, calls[Fx.name], launched)
+
+    log(f"phase 9: Aurora over GF(2^192) at 2^{args.log_n} constraints")
+    paths["aurora_gf192"], _, _ = main_path(
+        Fg, dev, cs_g, primary_g, aux_g, "aurora_gf192", AURORA,
+        aurora_params(False, "blake2b", localization=1), None,
+        _NOT_ON_PATH["aurora_binary"], calls[Fg.name])
+
+    log(f"phase 10: zk Aurora over GF(2^192) at 2^{args.log_n} constraints")
+    paths["aurora_gf192_zk"], _, record = main_path(
+        Fg, dev, cs_g, primary_g, aux_g, "aurora_gf192_zk", AURORA,
+        aurora_params(True, "blake2b", localization=1), 0,
+        _NOT_ON_PATH["aurora_binary"], calls[Fg.name])
+    rows.append(check_fused_dag(Fg, record))
+    del record
+    rows += check_binary_recorded(Fg, calls[Fg.name])
+    field_paths[Fg.name] = ("aurora_gf192_zk", "aurora_gf192")
     del calls
 
-    log("phase 9: results")
+    log("phase 11: results")
     for r in rows:
         # the row's main path: the first of its field's paths (zk first)
         # that launched it

@@ -1,9 +1,9 @@
-"""Domain-generic algebra surface, multiplicative branch only.
+"""Domain-generic algebra surface over both domain families.
 
-Port of the multiplicative branches of libiop_tpu/algebra/generic.py: the
-call surface the protocols use (domains, FFTs, vanishing polynomials, column
-placement, host-int Lagrange helpers).  The additive (binary-field) branches
-are later work.
+Port of libiop_tpu/algebra/generic.py: the call surface the protocols use
+(domains, FFTs, vanishing polynomials, column placement, host-int Lagrange
+helpers), dispatching between multiplicative cosets of prime fields and
+affine subspaces of binary fields (``is_additive``).
 """
 from __future__ import annotations
 
@@ -13,34 +13,71 @@ import numpy as np
 import torch
 
 from ..kernels import place_columns as _k13
+from ..kernels.linearized import linearized_multiply
 from . import poly as mpoly
 from .domains import MultiplicativeCoset, device_table
 from .fft import fft, ifft, ifft_of_known_degree
+from .linearized import LinearizedVanishing, divide_by_linearized
+from .subspace import AffineSubspace, additive_fft, additive_ifft
 
 
-def make_domain(F, dim: int, shift=None) -> MultiplicativeCoset:
-    """The canonical subgroup of dimension dim, optionally shifted."""
+def is_additive(domain) -> bool:
+    return domain.kind == "affine_subspace"
+
+
+def make_domain(F, dim: int, shift=None):
+    """The canonical domain of dimension dim over F (a subgroup, or the
+    standard-basis subspace), optionally shifted."""
+    if F.kind == "additive":
+        return AffineSubspace(F, dim, shift=shift or 0)
     return MultiplicativeCoset(F, dim, shift=1 if shift is None else shift)
 
 
 def element_outside_of_subset(F, dim: int) -> int:
-    """An element outside the canonical subgroup (its coset shift)."""
+    """An element outside the canonical domain of dimension dim, the
+    codeword domain's shift: x^dim for a subspace, the multiplicative
+    generator for a subgroup."""
+    if F.kind == "additive":
+        return 1 << dim
     return F.multiplicative_generator
 
 
+def linearized_vanishing(H: AffineSubspace) -> LinearizedVanishing:
+    """The memoized LinearizedVanishing of an affine subspace."""
+    z = getattr(H, "_linearized_vanishing", None)
+    if z is None:
+        z = H._linearized_vanishing = LinearizedVanishing(H)
+    return z
+
+
 def fft_any(coeffs, domain):
+    if is_additive(domain):
+        return additive_fft(coeffs, domain)
     return fft(coeffs, domain)
 
 
 def ifft_any(evals, domain):
+    if is_additive(domain):
+        return additive_ifft(evals, domain)
     return ifft(evals, domain)
 
 
 def ifft_known_any(evals, domain, degree_bound: int):
+    """IFFT of a polynomial of known degree bound over its minimal
+    subdomain: the additive prefix subspace occupies the first d slots."""
+    if is_additive(domain):
+        d = 1 << (max(1, degree_bound) - 1).bit_length()
+        if d >= domain.order:
+            return additive_ifft(evals, domain)
+        return additive_ifft(evals[..., :d].contiguous(),
+                             domain.get_subset_of_order(d))
     return ifft_of_known_degree(evals, domain, degree_bound)
 
 
 def vanishing_eval_int(H, x: int) -> int:
+    """Z_H(x) as a host int."""
+    if is_additive(H):
+        return linearized_vanishing(H).eval_at_point_int(x)
     F = H.field
     return F.sub_ints(F.pow_int(x, H.order), F.pow_int(H.shift, H.order))
 
@@ -63,18 +100,37 @@ def place_columns(values: torch.Tensor, positions, out_size: int):
 
 def vanishing_evals_over_any(H, L, device):
     """(limbs, |L|) evaluations of Z_H over L (memoized per device)."""
+    if is_additive(H):
+        return linearized_vanishing(H).evals_over(L, device)
     return device_table(("z", H._key(), L._key()), device,
                         lambda: mpoly.vanishing_evals_over(H, L, device))
 
 
 def vanishing_inverse_evals_over_any(H, L, device):
-    """1/Z_H over L (memoized per device)."""
+    """1/Z_H over L (L disjoint from H; memoized per device).  A binary
+    field inverts the evaluation table through K16."""
+    if is_additive(H):
+        return device_table(
+            ("zinv", H._key(), L._key()), device,
+            lambda: H.field.inv(vanishing_evals_over_any(H, L, device)))
     return device_table(
         ("zinv", H._key(), L._key()), device,
         lambda: mpoly.vanishing_inverse_evals_over(H, L, device))
 
 
+def mul_by_vanishing_any(coeffs, H):
+    """Coefficients of Z_H * f (kernel K12, or K18 for a subspace)."""
+    if is_additive(H):
+        return linearized_multiply(
+            H.field, coeffs.contiguous(),
+            linearized_vanishing(H).coeffs_dense_positions(), H.order)
+    return mpoly.mul_by_vanishing(coeffs, H)
+
+
 def divide_by_vanishing_any(coeffs, H):
+    """(quotient, remainder) of a dense coefficient array by Z_H."""
+    if is_additive(H):
+        return divide_by_linearized(H.field, coeffs, linearized_vanishing(H))
     return mpoly.divide_by_vanishing(coeffs, H)
 
 
@@ -120,12 +176,16 @@ def batch_inv_ints(F, vals: List[int]) -> List[int]:
 
 
 def _vanishing_derivative_list(domain) -> List[int]:
-    """[Z'(e_i)] = h s^{h-1} g^{-i}, memoized per domain."""
+    """[Z'(e_i)]: the constant eps over a subspace, h s^{h-1} g^{-i} over a
+    coset; memoized per domain."""
     hit = getattr(domain, "_zprime_list", None)
     if hit is not None:
         return hit
-    F = domain.field
     h = domain.order
+    if is_additive(domain):
+        out = domain._zprime_list = [linearized_vanishing(domain).epsilon] * h
+        return out
+    F = domain.field
     c = F.mul_ints(h % F.p, F.pow_int(domain.shift, h - 1))
     g_inv = F.inv_int(domain.g)
     out = []

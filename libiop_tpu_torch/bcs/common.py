@@ -6,7 +6,10 @@ Poseidon one in bcs/poseidon.py).
 
 Leaf layout (bcs_common.tcc:646-676): with coset size c over a domain of size
 N, leaf j holds, for each oracle in ascending id order, the values at
-positions j, j + N/c, ..., j + (c-1)N/c as canonical little-endian limbs.
+positions j, j + N/c, ..., j + (c-1)N/c (a multiplicative coset) or
+j*c, ..., j*c + c-1 (an affine subspace, whose cosets are contiguous) as
+canonical little-endian bytes: 16-bit limbs of a prime field element, the
+32-bit words of a binary one.
 """
 from __future__ import annotations
 
@@ -77,18 +80,26 @@ class DeviceLeafBlocks:
 
 def pack_canonical_words(F, stacked: torch.Tensor) -> torch.Tensor:
     """(L, *batch) Montgomery limbs -> (L/2, *batch) int32 words whose
-    little-endian bytes are the canonical little-endian limb bytes."""
+    little-endian bytes are the canonical little-endian limb bytes; a
+    binary field's words are canonical as they are."""
+    if F.kind == "additive":
+        return stacked
     cl = F.to_canonical_limbs(stacked).to(torch.int64)
     w = cl[0::2] | (cl[1::2] << 16)
     return (w - ((w >> 31) << 32)).to(torch.int32)
 
 
-def leaf_words_layout(packed: torch.Tensor, num_leaves: int, coset_size: int):
+def leaf_words_layout(packed: torch.Tensor, num_leaves: int, coset_size: int,
+                      contiguous: bool = False):
     """(L2, O, N) packed words -> (num_leaves, O*c*L2) per-leaf word streams
-    (leaf j = for each oracle, positions j + i*num_leaves, i < c)."""
+    (leaf j = for each oracle, positions j + i*num_leaves, i < c; with
+    ``contiguous``, positions j*c + i)."""
     L2, O, N = packed.shape
     assert N == num_leaves * coset_size
-    w = packed.reshape(L2, O, coset_size, num_leaves).permute(3, 1, 2, 0)
+    if contiguous:
+        w = packed.reshape(L2, O, num_leaves, coset_size).permute(2, 1, 3, 0)
+    else:
+        w = packed.reshape(L2, O, coset_size, num_leaves).permute(3, 1, 2, 0)
     return w.reshape(num_leaves, O * coset_size * L2).contiguous()
 
 
@@ -102,11 +113,13 @@ def device_leaf_digests(F, oracle_evals_list, domain, coset_size: int,
     num_leaves * salt_bytes (word-aligned).  It is shipped to the device
     once and written after each leaf's words, so K3 hashes
     0x00 || block || salt, the stream the host verifier hashes."""
-    assert oracle_evals_list and digest_bytes % 4 == 0 and F.L % 2 == 0
+    assert oracle_evals_list and digest_bytes % 4 == 0 \
+        and (F.kind == "additive" or F.L % 2 == 0)
     N = domain.num_elements()
     num_leaves = N // coset_size
     packed = pack_canonical_words(F, torch.stack(oracle_evals_list, dim=1))
-    words = leaf_words_layout(packed, num_leaves, coset_size)
+    words = leaf_words_layout(packed, num_leaves, coset_size,
+                              domain.kind == "affine_subspace")
     block_len = 4 * words.shape[1]
     if salts is not None:
         sb = len(salts) // num_leaves
@@ -130,8 +143,11 @@ def serialize_leaf_blocks(F, oracle_evals_list, domain,
     for ev in oracle_evals_list:
         raw = np.frombuffer(F.canonical_to_bytes(F.to_canonical_limbs(ev)),
                             dtype=np.uint8).reshape(N, F.elem_bytes)
-        blocks = raw.reshape(coset_size, num_leaves, F.elem_bytes).transpose(
-            1, 0, 2)
+        if domain.kind == "affine_subspace":
+            blocks = raw.reshape(num_leaves, coset_size, F.elem_bytes)
+        else:
+            blocks = raw.reshape(coset_size, num_leaves,
+                                 F.elem_bytes).transpose(1, 0, 2)
         raw_per_oracle.append(blocks.reshape(num_leaves, -1))
     cat = np.ascontiguousarray(np.concatenate(raw_per_oracle, axis=1))
     return [cat[i].tobytes() for i in range(num_leaves)]

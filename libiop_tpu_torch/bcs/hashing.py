@@ -4,7 +4,8 @@ Fiat-Shamir hashchain (port of libiop_tpu/bcs/hashing.py).
 Digests are 2*(security_bits/8) bytes.  The hashchain is sequential host
 work on tiny data (hashlib); the bulk leaf and tree hashing of the prover
 runs on the device (kernels/blake2b.py).  Field elements are always
-serialized canonically (little-endian 16-bit limbs).
+serialized canonically (little-endian 16-bit limbs of a prime field, the
+32-bit words of a binary one).
 """
 from __future__ import annotations
 
@@ -67,7 +68,10 @@ class Blake2bHashchain:
         self.digest_bytes = 2 * (security_bits // 8)
         self.state = blake2b(DOMAIN_SEP + b"hashchain-init", self.digest_bytes)
         self._squeeze_ctr = 0
-        self._sample_bytes = min(64, field.elem_bytes + 16)
+        # a prime field draws 128 bits of slack for its reduction mod p; a
+        # binary field's exact width is uniform
+        self._sample_bytes = min(64, field.elem_bytes + (
+            0 if field.kind == "additive" else 16))
 
     def absorb_bytes(self, data: bytes):
         self.state = blake2b(self.state + data, self.digest_bytes)

@@ -29,12 +29,18 @@
 // one launch and no host-to-device copy.  The register file is indexed at
 // run time and so lives in local memory (L1-cached).
 //
+// Over a binary field GF(2^k) the same tape runs through a second
+// instantiation (fused_dag_gf2_launch, W = 2, 4, 6, 8): add and sub are
+// XOR, mul is gf2k.cuh's product, codewords are (W, n) word arrays and
+// scalars W raw words.
+//
 // Bound on the H100: memory where the DAG is input-heavy (8W bytes per input
 // codeword element, ~8W^2 integer instructions per product), operations
 // where products dominate.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "gf2k.cuh"
 
 namespace {
 
@@ -119,7 +125,74 @@ int launch(const void* params, const uint32_t* field, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <int W>
+struct LaunchParamsGF2 {
+  DagParams d;
+  gf::Taps T;
+};
+
+template <int W>
+__device__ __forceinline__ void fetch_gf2(uint32_t x[W], uint32_t operand,
+                                          const DagParams& d,
+                                          uint32_t reg[kMaxRegs][W],
+                                          size_t i) {
+  const uint32_t kind = operand >> 10, idx = operand & 1023u;
+  if (kind == kInput) {
+    gf::load<W>(x, d.inputs[idx], (size_t)d.n, i);
+  } else if (kind == kScalar) {
+#pragma unroll
+    for (int j = 0; j < W; ++j) x[j] = d.scalars[idx * fp::kMaxWords + j];
+  } else {
+#pragma unroll
+    for (int j = 0; j < W; ++j) x[j] = reg[idx][j];
+  }
+}
+
+template <int W>
+__global__ void fused_dag_gf2_kernel(
+    const __grid_constant__ LaunchParamsGF2<W> lp) {
+  const DagParams& d = lp.d;
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (size_t)d.n) return;
+  uint32_t reg[kMaxRegs][W];
+  for (int k = 0; k < d.n_ops; ++k) {
+    const uint32_t w = d.ops[k];
+    const uint32_t op = w & 3u, dst = (w >> 2) & 63u;
+    uint32_t x[W], y[W];
+    fetch_gf2<W>(x, (w >> 8) & 0xfffu, d, reg, i);
+    if (op == kStore) {
+      gf::store<W>(d.outputs[dst], (size_t)d.n, i, x);
+      continue;
+    }
+    fetch_gf2<W>(y, w >> 20, d, reg, i);
+    if (op == kMul)
+      gf::mul<W>(x, x, y, lp.T);
+    else
+      gf::add<W>(x, x, y);
+#pragma unroll
+    for (int j = 0; j < W; ++j) reg[dst][j] = x[j];
+  }
+}
+
+template <int W>
+int launch_gf2(const void* params, const uint32_t* taps, void* stream) {
+  LaunchParamsGF2<W> lp;
+  lp.d = *(const DagParams*)params;
+  lp.T = gf::taps_from(taps);
+  if (lp.d.n_ops < 0 || lp.d.n_ops > kMaxOps) return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  if (lp.d.n > 0)
+    fused_dag_gf2_kernel<W><<<(unsigned)((lp.d.n + threads - 1) / threads),
+                              threads, 0, (cudaStream_t)stream>>>(lp);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+extern "C" int fused_dag_gf2_launch(const void* params, int words,
+                                    const uint32_t* taps, void* stream) {
+  GF_DISPATCH_WORDS(words, launch_gf2, params, taps, stream)
+}
 
 extern "C" int fused_dag_launch(const void* params, int words,
                                 const uint32_t* field, void* stream) {

@@ -16,11 +16,16 @@ import torch
 LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0,
             "field_addsub": 0, "lazy_reduce": 0, "ell_matvec": 0,
             "fused_dag": 0, "poseidon": 0, "horner": 0, "powers": 0,
-            "vanishing": 0, "place_columns": 0, "rs_encode": 0, "row_dot": 0}
+            "vanishing": 0, "place_columns": 0, "rs_encode": 0, "row_dot": 0,
+            "gf2k_mul": 0, "additive_fft": 0, "linearized": 0,
+            "fri_fold_additive": 0}
 
 #: 32-bit words per field element that the field kernels are instantiated
 #: for (csrc/field.cuh): 6 for edwards_Fr (L = 12), 8 for alt_bn128_Fr (16)
 KERNEL_WORDS = (6, 8)
+#: 32-bit words per element that the binary-field kernels are instantiated
+#: for (csrc/gf2k.cuh): gf64, gf128, gf192, gf256
+BINARY_WORDS = (2, 4, 6, 8)
 
 
 def reset_launch_counts():
@@ -35,6 +40,14 @@ def field_words(F) -> int:
         raise ValueError(f"{F.name}: {F.L} limbs; the CUDA field kernels are "
                          f"built for {[2 * w for w in KERNEL_WORDS]} limbs")
     return F.L // 2
+
+
+def binary_words(F) -> int:
+    """The word count W a binary-field kernel is launched with for F."""
+    if F.W not in BINARY_WORDS:
+        raise ValueError(f"{F.name}: {F.W} words; the binary-field kernels "
+                         f"are built for {list(BINARY_WORDS)} words")
+    return F.W
 
 
 def check_limbs(name: str, t: torch.Tensor, device: torch.device = None):

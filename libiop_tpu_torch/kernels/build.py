@@ -26,7 +26,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 #: kernel source stems; each becomes _build/<stem>.so
 SOURCES = ("mont_mul", "ntt", "blake2b", "fri_fold", "field_addsub",
            "lazy_reduce", "ell_matvec", "fused_dag", "poseidon", "horner",
-           "powers", "vanishing", "place_columns", "rs_encode", "row_dot")
+           "powers", "vanishing", "place_columns", "rs_encode", "row_dot",
+           "gf2k_mul", "additive_fft", "linearized", "fri_fold_additive")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

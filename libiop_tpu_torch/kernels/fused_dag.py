@@ -8,6 +8,8 @@ virtual oracles under a set of roots, iop/runtime.py) is recorded with a
 packed instruction words over a small register file, input codewords
 (L, n) and broadcast scalars.  The card evaluates the whole tape in one
 launch; the plain twin interprets the same words with the plain field ops.
+Over a binary field the same tape runs through K8's GF(2^k) instantiation
+(add and sub are XOR).
 """
 from __future__ import annotations
 
@@ -17,9 +19,10 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from . import (LAUNCHES, build, check_limbs, field_words, raise_on_error,
-               stream_ptr)
+from . import (LAUNCHES, binary_words, build, check_limbs, field_words,
+               raise_on_error, stream_ptr)
 from ..fields.limbs import add_plain, mul_plain, sub_plain
+from .gf2k_mul import gf2k_mul_plain
 
 # limits of the kernel's launch parameters (csrc/fused_dag.cu)
 MAX_INPUTS, MAX_OUTPUTS, MAX_SCALARS, MAX_OPS, MAX_REGS = 32, 4, 48, 192, 16
@@ -40,6 +43,10 @@ class _DagParams(ctypes.Structure):
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _binary(F) -> bool:
+    return F.kind == "additive"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,6 +155,11 @@ def fused_dag_plain(F, tape: Tape, inputs: Sequence[torch.Tensor],
     sc = F.from_ints(list(scalars), dev) if scalars else None
     regs: List[torch.Tensor] = [None] * MAX_REGS
     outs: List[torch.Tensor] = [None] * tape.n_outputs
+    if _binary(F):
+        add = sub = lambda F, a, b: torch.bitwise_xor(a, b)
+        mul = gf2k_mul_plain
+    else:
+        add, sub, mul = add_plain, sub_plain, mul_plain
 
     def fetch(o: int) -> torch.Tensor:
         kind, idx = o >> 10, o & 1023
@@ -165,11 +177,11 @@ def fused_dag_plain(F, tape: Tape, inputs: Sequence[torch.Tensor],
             continue
         b = fetch(w >> 20)
         if op == ADD:
-            regs[dst] = add_plain(F, a, b)
+            regs[dst] = add(F, a, b)
         elif op == SUB:
-            regs[dst] = sub_plain(F, a, b)
+            regs[dst] = sub(F, a, b)
         else:
-            regs[dst] = mul_plain(F, a, b)
+            regs[dst] = mul(F, a, b)
     return outs
 
 
@@ -200,17 +212,23 @@ def fused_dag(F, tape: Tape, inputs: Sequence[torch.Tensor],
         prm.inputs[k] = t.data_ptr()
     for k, t in enumerate(outs):
         prm.outputs[k] = t.data_ptr()
+    binary = _binary(F)
     for k, v in enumerate(scalars):
-        m = (int(v) % F.p) * F.R % F.p
-        for j in range(F.L // 2):
+        m = F.sample_int(int(v)) if binary else (int(v) % F.p) * F.R % F.p
+        for j in range(F.W if binary else F.L // 2):
             prm.scalars[k * MAX_WORDS + j] = (m >> (32 * j)) & 0xffffffff
     for k, w in enumerate(tape.ops):
         prm.ops[k] = w
     prm.n_ops = len(tape.ops)
     prm.n = n
-    fn = build.launcher("fused_dag", "fused_dag_launch", _ARGTYPES)
-    err = fn(ctypes.byref(prm), field_words(F), F.kernel_params(),
-             stream_ptr(dev))
+    if binary:
+        fn = build.launcher("fused_dag", "fused_dag_gf2_launch", _ARGTYPES)
+        err = fn(ctypes.byref(prm), binary_words(F), F.kernel_params(),
+                 stream_ptr(dev))
+    else:
+        fn = build.launcher("fused_dag", "fused_dag_launch", _ARGTYPES)
+        err = fn(ctypes.byref(prm), field_words(F), F.kernel_params(),
+                 stream_ptr(dev))
     raise_on_error("fused_dag", err)
     LAUNCHES["fused_dag"] += 1
     return outs

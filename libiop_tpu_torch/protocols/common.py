@@ -7,6 +7,7 @@ from typing import List, Optional
 
 import torch
 
+from ..fields.binary import xor_reduce
 from ..iop.runtime import VirtualOracle
 from ..kernels.row_dot import row_dot
 
@@ -15,10 +16,13 @@ def lazy_linear_combination(F, coeff_ints: List[int],
                             rows: torch.Tensor) -> torch.Tensor:
     """sum_i c_i * rows[:, i, :] for rows (L, R, N) and R canonical host
     ints c_i: one row inner product with a scalar per row (kernel K15 on
-    the card: the wide products summed lazily, one reduction)."""
+    the card: the wide products summed lazily, one reduction); over a
+    binary field K16 products XOR-accumulated."""
     assert len(coeff_ints) == rows.shape[1]
     coeffs = F.from_ints(list(coeff_ints), rows.device).reshape(
         F.L, len(coeff_ints), 1)
+    if F.kind == "additive":
+        return xor_reduce(F.mul(rows, coeffs), dim=1)
     return row_dot(F, rows.contiguous(), coeffs)
 
 

@@ -1,10 +1,15 @@
-"""FRI low-degree test over multiplicative cosets (port of the
-multiplicative branch of libiop_tpu/protocols/fri.py).
+"""FRI low-degree test over both domain families (port of
+libiop_tpu/protocols/fri.py).
 
-Domain chain L^(i+1) = q(L^(i)), q(x) = x^{2^eta_i}; cosets are strided
-{j, j + N/c, ...}.  The prover folds every round at the verifier challenge
-(kernel K4) and sends the final polynomial; the verifier chases one query
-through the rounds with host-int coset interpolation.
+Domain chain L^(i+1) = q(L^(i)): over multiplicative cosets q(x) =
+x^{2^eta_i} and cosets are strided {j, j + N/c, ...}; over affine subspaces
+q is the linearized vanishing polynomial Z_V of the localizer subspace V
+(the first eta_i basis vectors), the next basis and shift are the images
+of the remaining basis vectors and of the shift, and cosets are contiguous
+[j c, (j+1) c).  The prover folds every round at the verifier challenge
+(kernel K4, or K19 over a subspace) and sends the final polynomial; the
+verifier chases one query through the rounds with host-int coset
+interpolation.
 """
 from __future__ import annotations
 
@@ -15,15 +20,21 @@ import numpy as np
 import torch
 
 from ..algebra.domains import MultiplicativeCoset, device_table
-from ..algebra.generic import ifft_known_any
+from ..algebra.generic import ifft_known_any, is_additive
+from ..algebra.linearized import LinearizedVanishing
+from ..algebra.subspace import AffineSubspace, subset_sums_ints
+from ..fields.binary import subset_sums
 from ..iop.runtime import IOPProtocol, OracleHandle, RoundParameters
 from ..kernels.fri_fold import fri_fold
+from ..kernels.fri_fold_additive import fri_fold_additive
 from ..kernels.powers import powers
 from ..utils.profiling import PROFILER
 
 
 def log2_field_size(F) -> float:
     """Soundness log2|F| (libff soundness_log_of_field_size_helper role)."""
+    if F.kind == "additive":
+        return float(F.k)
     b = F.p.bit_length()
     return math.log2(F.p >> max(0, b - 53)) + max(0, b - 53)
 
@@ -132,6 +143,60 @@ def interpolate_coset_at_point_ints(F, coset_values: List[int],
     return total
 
 
+def localizer_vanishing(domain: AffineSubspace, eta: int
+                        ) -> LinearizedVanishing:
+    """Z of the unshifted localizer subspace span(basis[:eta])."""
+    return LinearizedVanishing(AffineSubspace(
+        domain.field, eta, shift=0, basis=domain.basis[:eta]))
+
+
+def coset_vanishing_offsets(domain: AffineSubspace, eta: int,
+                            Z: LinearizedVanishing, device) -> torch.Tensor:
+    """(W, N/c) Z_V at each coset's shift, in coset order (constant on the
+    coset by F2-linearity): subset sums of Z_V over the remaining basis
+    vectors, memoized per device."""
+    F = domain.field
+
+    def compute():
+        z_rest = [Z._eval_linear(Z.linear_coeffs, b)
+                  for b in domain.basis[eta:]]
+        return subset_sums(
+            F.from_ints(z_rest, device).reshape(F.W, len(z_rest)),
+            F.from_ints([Z.eval_at_point_int(domain.shift)], device))
+
+    return device_table(("fri_offsets", domain._key(), eta), device, compute)
+
+
+def fold_codeword_additive(F, evals: torch.Tensor, domain: AffineSubspace,
+                           eta: int, x_int: int) -> torch.Tensor:
+    """One additive FRI reduction (W, N) -> (W, N/2^eta): per contiguous
+    coset the Lagrange interpolation at x, eps^-1 Z_{C_j}(x) sum_e
+    f(e)/(x - e), or f(e) where x = e (kernel K19 on the card)."""
+    Z = localizer_vanishing(domain, eta)
+    dev = evals.device
+    return fri_fold_additive(
+        F, evals.contiguous(), domain.elements(dev),
+        coset_vanishing_offsets(domain, eta, Z, dev), x_int,
+        Z.eval_at_point_int(x_int), F.inv_int(Z.epsilon), 1 << eta)
+
+
+def interpolate_coset_additive_ints(F, coset_values: List[int],
+                                    coset_shift: int, Z: LinearizedVanishing,
+                                    basis: List[int], x: int) -> int:
+    """Host-int mirror of one additive coset's fold (verifier side); basis
+    is the localizer subspace's (the round domain's first eta vectors)."""
+    elems = subset_sums_ints(F, basis, coset_shift)
+    for k, e in enumerate(elems):
+        if e == x:
+            return coset_values[k]
+    z_x = Z.eval_at_point_int(x) ^ Z.eval_at_point_int(coset_shift)
+    scale = F.mul_ints(F.inv_int(Z.epsilon), z_x)
+    total = 0
+    for k, v in enumerate(coset_values):
+        total ^= F.mul_ints(v, F.inv_int(x ^ elems[k]))
+    return F.mul_ints(scale, total)
+
+
 class FRIProtocol:
     """Multi-FRI: several codewords share challenges and query positions."""
 
@@ -144,7 +209,20 @@ class FRIProtocol:
         self.poly_handles = list(poly_handles)
         self.num_reductions = len(params.localization_parameters)
         dom0 = iop.get_domain(codeword_handle)
+        self.additive = is_additive(dom0)
         self.domains = [dom0]
+        self.localizers: List[LinearizedVanishing] = []
+        if self.additive:
+            dom = dom0
+            for eta in params.localization_parameters:
+                Z = localizer_vanishing(dom, eta)
+                self.localizers.append(Z)
+                dom = AffineSubspace(
+                    self.F, dom.dim - eta, shift=Z.eval_at_point_int(dom.shift),
+                    basis=[Z._eval_linear(Z.linear_coeffs, b)
+                           for b in dom.basis[eta:]])
+                self.domains.append(dom)
+            return
         shift, dim = dom0.shift, dom0.dim
         for eta in params.localization_parameters:
             shift = pow(shift, 1 << eta, self.F.p)
@@ -212,6 +290,7 @@ class FRIProtocol:
         with PROFILER.block("fri_combine_inputs"):
             base_evals = self.iop.get_fused_oracle_evaluations(self.poly_handles)
         per_interaction = [list(base_evals) for _ in range(ni)]
+        fold = fold_codeword_additive if self.additive else fold_codeword
         for i in range(self.num_reductions):
             if i > 0:
                 with PROFILER.block(f"fri_round{i}_commit"):
@@ -225,7 +304,7 @@ class FRIProtocol:
                     x_i = self.iop.obtain_verifier_random_message(
                         self.challenge_handles[i][j])[0]
                     per_interaction[j] = [
-                        fold_codeword(F, ev, self.domains[i], etas[i], x_i)
+                        fold(F, ev, self.domains[i], etas[i], x_i)
                         for ev in per_interaction[j]]
         final_domain = self.domains[self.num_reductions]
         with PROFILER.block("fri_final_poly"):
@@ -266,9 +345,15 @@ class FRIProtocol:
                 return False
             coset_shift = dom.element_by_index_int(
                 dom.position_by_coset_indices(si_j, 0, c))
-            last_interp = interpolate_coset_at_point_ints(
-                F, coset_vals, coset_shift, etas[i], x_i)
-            s = F.pow_int(s, 1 << etas[i])
+            if self.additive:
+                last_interp = interpolate_coset_additive_ints(
+                    F, coset_vals, coset_shift, self.localizers[i],
+                    dom.basis[:etas[i]], x_i)
+                s = self.localizers[i].eval_at_point_int(s)
+            else:
+                last_interp = interpolate_coset_at_point_ints(
+                    F, coset_vals, coset_shift, etas[i], x_i)
+                s = F.pow_int(s, 1 << etas[i])
             s_idx = si_j
         final_coeffs = self.iop.receive_prover_message(
             self.final_poly_handles[qset["interaction"]][qset["ldt"]])

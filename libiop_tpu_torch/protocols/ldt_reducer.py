@@ -49,9 +49,12 @@ class LDTReducerParams:
 
 
 def x_power_evals(F, L, delta: int, device) -> torch.Tensor:
-    """x^delta over the coset L: shift^delta * g^{delta*k}, a strided gather
-    of the generator powers times one scalar (memoized per device)."""
+    """x^delta over L (memoized per device): over a coset shift^delta *
+    g^{delta*k}, a strided gather of the generator powers times one scalar;
+    over a subspace square and multiply over its elements (K16)."""
     def _compute():
+        if L.kind == "affine_subspace":
+            return F.pow_static(L.elements(device), delta)
         N = L.order
         idx = (torch.arange(N, dtype=torch.int64, device=device)
                * (delta % N)) % N

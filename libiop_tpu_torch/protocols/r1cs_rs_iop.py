@@ -16,10 +16,10 @@ import numpy as np
 import torch
 
 from ..algebra.generic import (divide_by_vanishing_any, fft_any, ifft_any,
-                               lagrange_coeffs_ints_any, place_columns,
-                               vanishing_eval_int, vanishing_evals_over_any,
+                               lagrange_coeffs_ints_any, mul_by_vanishing_any,
+                               place_columns, vanishing_eval_int,
+                               vanishing_evals_over_any,
                                vanishing_inverse_evals_over_any)
-from ..algebra.poly import mul_by_vanishing
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
 from .lincheck import LincheckParams, MultiLincheck
 
@@ -194,7 +194,7 @@ class EncodedAurora:
                   f1v_vd.index_select(1, pos_dev)), aux_positions, n)
         fw_coeffs = ifft_any(fw_prime, self.variable_domain)
         if masks:
-            zr = mul_by_vanishing(masks[0], self.variable_domain)
+            zr = mul_by_vanishing_any(masks[0], self.variable_domain)
             zr[:, :n] = F.add(zr[:, :n], fw_coeffs)
             fw_coeffs = zr
         quotient, _rem = divide_by_vanishing_any(fw_coeffs, self.input_domain)
@@ -205,7 +205,8 @@ class EncodedAurora:
         for idx, M in enumerate(self.r1cs.matrices()):
             coeffs = ifft_any(M.matvec(z), self.constraint_domain)
             if masks:
-                zr = mul_by_vanishing(masks[1 + idx], self.constraint_domain)
+                zr = mul_by_vanishing_any(masks[1 + idx],
+                                          self.constraint_domain)
                 zr[:, :m] = F.add(zr[:, :m], coeffs)
                 coeffs = zr
             outs.append(fft_any(coeffs, self.L))

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..fields.binary import xor_reduce
 from ..kernels.ell_matvec import ell_matvec
 
 #: lazily summed terms per row stay far inside int64; the cap mirrors the
@@ -89,6 +90,12 @@ class SparseMatrix:
                 [self.vals, np.zeros((F.L, 1), np.int32)], axis=1))
             e_dev = self._dev(tag + "_entry", dev, lambda: entry_idx)
             s_dev = self._dev(tag + "_src", dev, lambda: src_flat)
+            if F.kind == "additive":
+                # the reference's XOR branch (sparse.py:87-101): K16
+                # products of the gathered entries, XOR over each row
+                prod = F.mul(vals_pad.index_select(1, e_dev),
+                             vec.index_select(1, s_dev))
+                return xor_reduce(prod.reshape(F.L, num_segments, K), dim=2)
             return ell_matvec(F, vals_pad, e_dev, s_dev, vec.contiguous(), K)
         vals = self._dev("vals", dev, lambda: self.vals)
         src = self._dev(tag + "_src_coo", dev, lambda: src_ids)

@@ -54,26 +54,64 @@ def test_tagged_rows_match_hashlib(msg_bytes, digest_bytes, tag):
         for m in msgs]
 
 
+#: sha256 of the reference's outputs (little-endian uint32 words or digest
+#: bytes) per case: its tagged rows per (msg_bytes, digest_bytes), its
+#: Merkle heap, its unsalted leaf pipeline (root and heap) and its salted
+#: leaf digests.  Their jitted functions cost an XLA CPU compile each;
+#: the slow test recomputes them.
+REFERENCE_PINS = {
+    ("rows", 4, 8):
+        "d49446f5bcf344a0184db680daf47ebcb01d6d509bf20303caaac6d6c9abbd57",
+    ("rows", 128, 32):
+        "2b76eb235117a5c3ec9455371ced0ceca987ed514eeaecf3c59e3f4d3824f0cd",
+    ("rows", 385, 32):
+        "38d1006c6d847f5cd4d6aaa704eb1b11e80e76c1cb46013c7cb5d9b3084c4446",
+    "heap":
+        "ec0bfd8646f38068a319646447778b47b42415db94f7075a0ec461be6ccf6829",
+    "pipeline":
+        "11fb6e528a77a05766d03687872ae70e6eee242dfbc7a25881bc1529f9a9d2f7",
+    "salted":
+        "552892dbf3f2c3c25ac02e48ab020d28e401ca80647c40d73aa6260fe64b9110",
+}
+
+
+def _sha(blobs):
+    return hashlib.sha256(b"".join(blobs)).hexdigest()
+
+
+def _reference_rows(msg_bytes, digest_bytes):
+    msgs, rows = _rows(np.random.default_rng(msg_bytes), 5, msg_bytes)
+    ref = np.asarray(jax.jit(lambda w: blake2b_words(
+        prefix_tag_words(w, 0x00), msg_bytes + 1, digest_bytes))(
+            jnp.asarray(rows)))
+    return [ref[k].astype("<u4").tobytes() for k in range(len(msgs))]
+
+
 # one block, a block boundary crossed by the tag byte, and four blocks
 @pytest.mark.parametrize("msg_bytes,digest_bytes", [(4, 8), (128, 32),
                                                     (385, 32)])
 def test_tagged_rows_match_reference(msg_bytes, digest_bytes):
     msgs, rows = _rows(np.random.default_rng(msg_bytes), 5, msg_bytes)
-    ref = np.asarray(jax.jit(lambda w: blake2b_words(
-        prefix_tag_words(w, 0x00), msg_bytes + 1, digest_bytes))(
-            jnp.asarray(rows)))
-    assert _tagged_digests(rows, msg_bytes, digest_bytes, 0x00) == \
-        [ref[k].astype("<u4").tobytes() for k in range(len(msgs))]
+    assert _sha(_tagged_digests(rows, msg_bytes, digest_bytes, 0x00)) == \
+        REFERENCE_PINS[("rows", msg_bytes, digest_bytes)]
+
+
+def _heap_leaves():
+    rng = np.random.default_rng(11)
+    return rng.integers(0, 1 << 32, size=(4, 8), dtype=np.uint64).astype(
+        np.uint32)
+
+
+def _reference_heap():
+    return [np.asarray(jax.jit(lambda d: merkle_heap_words(d, 32))(
+        jnp.asarray(_heap_leaves()))).astype("<u4").tobytes()]
 
 
 def test_merkle_heap_matches_reference():
-    rng = np.random.default_rng(11)
-    leaves = rng.integers(0, 1 << 32, size=(4, 8), dtype=np.uint64).astype(
-        np.uint32)
-    want = np.asarray(jax.jit(lambda d: merkle_heap_words(d, 32))(
-        jnp.asarray(leaves)))
-    got = merkle_heap(torch.from_numpy(leaves.view(np.int32).copy()), 32)
-    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+    got = merkle_heap(torch.from_numpy(_heap_leaves().view(np.int32).copy()),
+                      32)
+    assert _sha([got.numpy().astype("<u4").tobytes()]) == \
+        REFERENCE_PINS["heap"]
 
 
 def _leaf_pipeline_inputs(salt_bytes):
@@ -98,26 +136,62 @@ def _leaf_pipeline_inputs(salt_bytes):
     return Fj, dj, evals, salts, root_t, heap_t
 
 
-def test_device_leaf_pipeline_matches_reference():
-    """The port's leaf pipeline and Merkle heap against the JAX package's,
-    the host serialization and hashlib."""
-    Fj, dj, evals, _, root_t, heap_t = _leaf_pipeline_inputs(0)
-    root_j, heap_j, blocks_j = jcommon.device_leaf_digests(
+def _reference_pipeline():
+    Fj, dj, evals, _, _, _ = _leaf_pipeline_inputs(0)
+    root_j, heap_j, _ = jcommon.device_leaf_digests(
         Fj, [jnp.asarray(e) for e in evals], dj, 4, 32, build_tree=True)
-    assert root_t == root_j
-    np.testing.assert_array_equal(heap_t.numpy().view(np.uint32),
-                                  np.asarray(heap_j))
+    return [root_j, np.asarray(heap_j).astype("<u4").tobytes()]
+
+
+def _reference_salted():
+    Fj, dj, evals, salts, _, _ = _leaf_pipeline_inputs(8)
+    digests_j, _ = jcommon.device_leaf_digests(
+        Fj, [jnp.asarray(e) for e in evals], dj, 4, 32, salts=salts)
+    return list(digests_j)
+
+
+def test_device_leaf_pipeline_matches_reference():
+    """The port's leaf pipeline and Merkle heap against the JAX package's
+    (its pin), the host serialization and hashlib."""
+    _, _, _, _, root_t, heap_t = _leaf_pipeline_inputs(0)
+    assert _sha([root_t, heap_t.numpy().astype("<u4").tobytes()]) == \
+        REFERENCE_PINS["pipeline"]
 
 
 def test_salted_device_leaf_pipeline_matches_reference():
     """zk leaves, 0x00 || block || salt with 8-byte salts (32-bit
     security): the leaf digests against the JAX package's (its leaf
-    pipeline without the tree, which the unsalted case covers), the host
-    serialization and hashlib."""
-    Fj, dj, evals, salts, _, heap_t = _leaf_pipeline_inputs(8)
-    digests_j, _ = jcommon.device_leaf_digests(
-        Fj, [jnp.asarray(e) for e in evals], dj, 4, 32, salts=salts)
-    assert digest_rows_to_bytes(heap_t[4:], 32) == digests_j
+    pipeline without the tree, which the unsalted case covers; its pin),
+    the host serialization and hashlib."""
+    _, _, _, _, _, heap_t = _leaf_pipeline_inputs(8)
+    assert _sha(digest_rows_to_bytes(heap_t[4:], 32)) == \
+        REFERENCE_PINS["salted"]
+
+
+def _reference_cases():
+    """(pin key, reference outputs, port outputs) of every pinned case."""
+    cases = []
+    for m, d in ((4, 8), (128, 32), (385, 32)):
+        _, rows = _rows(np.random.default_rng(m), 5, m)
+        cases.append((("rows", m, d), _reference_rows(m, d),
+                      _tagged_digests(rows, m, d, 0x00)))
+    cases.append(("heap", _reference_heap(), [merkle_heap(torch.from_numpy(
+        _heap_leaves().view(np.int32).copy()), 32).numpy().astype(
+            "<u4").tobytes()]))
+    _, _, _, _, root_t, heap_t = _leaf_pipeline_inputs(0)
+    cases.append(("pipeline", _reference_pipeline(),
+                  [root_t, heap_t.numpy().astype("<u4").tobytes()]))
+    _, _, _, _, _, heap_t = _leaf_pipeline_inputs(8)
+    cases.append(("salted", _reference_salted(),
+                  digest_rows_to_bytes(heap_t[4:], 32)))
+    return cases
+
+
+@pytest.mark.slow
+def test_reference_outputs_behind_the_pins():
+    for key, want, got in _reference_cases():
+        assert got == want, key
+        assert _sha(want) == REFERENCE_PINS[key], key
 
 
 @pytest.mark.parametrize("positions", [[0], [3, 3, 9], [1, 2, 5, 14, 15],

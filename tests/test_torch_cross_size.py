@@ -9,6 +9,7 @@ from libiop_tpu.relations.examples import generate_r1cs_example as jax_generate
 from libiop_tpu.snark.aurora import AuroraSnarkParams as JaxParams
 from libiop_tpu.snark.aurora import aurora_snark_prover as jax_prover
 from libiop_tpu_torch.bcs.common import BCSTranscript
+from libiop_tpu_torch.fields.prime import edwards_fr
 from libiop_tpu_torch.interop import r1cs_from_reference
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
@@ -24,7 +25,7 @@ def test_port_and_reference_proofs_are_byte_identical_at_64_constraints():
     cs_j, primary, aux = jax_generate(Fj, 64, 3, 63, np.random.default_rng(64))
     want = jax_prover(cs_j, primary, aux, JaxParams(**_CONFIG),
                       rng=np.random.default_rng(0)).serialize()
-    cs_t = r1cs_from_reference(3, 63, cs_j.constraints)
+    cs_t = r1cs_from_reference(edwards_fr(), 3, 63, cs_j.constraints)
     params = AuroraSnarkParams(**_CONFIG)
     got = aurora_snark_prover(cs_t, primary, aux, params, device="cpu")
     assert got.serialize() == want

@@ -1,7 +1,11 @@
 """Port vs reference: NTT / inverse NTT over subgroups and cosets, including
 the degree-aware sizes (d < N); vanishing division, Horner evaluation,
 device powers and the domains' power tables over both fields.
-Tolerance 0."""
+Tolerance 0.  The reference's transforms cost an XLA CPU compile each:
+tier 1 holds the port's to the sha256 of the reference's outputs
+(``FFT_PINS``) and the slow test recomputes them."""
+import hashlib
+
 import numpy as np
 import pytest
 import torch
@@ -21,28 +25,81 @@ FIELDS = {"edwards_Fr": (jax_edwards_fr, edwards_fr),
           "alt_bn128_Fr": (jax_alt_bn128_fr, alt_bn128_fr)}
 
 
-@pytest.mark.parametrize("N", [2, 8, 64, 256])
-@pytest.mark.parametrize("coset", [False, True])
-def test_fft_ifft_match_reference(N, coset):
+FFT_CASES = [(N, coset) for coset in (False, True) for N in (2, 8, 64, 256)]
+
+#: sha256 of the reference's outputs per (N, coset): its evaluations of the
+#: case's coefficients and its ifft_of_known_degree of them (little-endian
+#: uint32 limbs); the slow test recomputes them
+FFT_PINS = {
+    (2, False):
+        "0ee7439dce8b697391878c95346b946343886e0af8e1c27a35094a8c9e227258",
+    (8, False):
+        "5d91d014fa11fb2678ede8c6d4d1ebb7af06d995d8eda9884c1c46d00adb7d24",
+    (64, False):
+        "bbe2a900ce39bae6089a9632c7beb6f74ae67fd8c1507bdf755cdfe7f7fa5389",
+    (256, False):
+        "f49481f842d13fb9c33903d7226b04340a226b769a0421fbab785949197f0198",
+    (2, True):
+        "bc5d88943a85822a0094276583c733a0fb544048045134820bf31b98a764105c",
+    (8, True):
+        "466cd0926d8b268b97a24b48c01c91c2a36e892adc5f725825059cf9436889f1",
+    (64, True):
+        "140c573d598e306e8f58d2ad223fa5c0fb86a22d8d4cbedb285e14203296c1fb",
+    (256, True):
+        "91ac80518c89d758a305b1da402060bac8364fb9b8b1d94438380fd1111932c0",
+}
+
+
+def _digest(arrays):
+    return hashlib.sha256(b"".join(
+        np.ascontiguousarray(np.asarray(a, dtype=np.uint32)).astype(
+            "<u4").tobytes() for a in arrays)).hexdigest()
+
+
+def _fft_case(N, coset):
     dim = N.bit_length() - 1
     shift = Ft.multiplicative_generator if coset else 1
-    dj, dt = JaxCoset(Fj, dim, shift), MultiplicativeCoset(Ft, dim, shift)
     rng = np.random.default_rng(N + coset)
     d = max(1, N // 4)                       # degree-aware: d < N
-    coeffs = Fj.from_ints_np(Ft.random_ints(d, rng))
-    evals_j = np.asarray(jfft.fft(coeffs, dj))
+    return dim, shift, d, Fj.from_ints_np(Ft.random_ints(d, rng))
+
+
+def _fft_port(N, coset):
+    """The port's evaluations and known-degree interpolation of the case;
+    also checks that the full-size inverse gives the coefficients padded
+    with zeros."""
+    dim, shift, d, coeffs = _fft_case(N, coset)
+    dt = MultiplicativeCoset(Ft, dim, shift)
     evals_t = fft.fft(limbs_from_numpy(coeffs), dt)
-    np.testing.assert_array_equal(limbs_to_numpy(evals_t), evals_j)
-    # the reference interpolates over the size-d subdomain: its ifft there
-    coeffs_t = fft.ifft_of_known_degree(evals_t, dt, d)
-    np.testing.assert_array_equal(
-        limbs_to_numpy(coeffs_t),
-        np.asarray(jfft.ifft_of_known_degree(evals_j, dj, d)))
-    # full-size inverse: ifft(fft(c)) gives c padded with zeros
     padded = np.zeros((Ft.L, N), np.uint32)
     padded[:, :d] = coeffs
     np.testing.assert_array_equal(
         limbs_to_numpy(fft.ifft(evals_t, dt)), padded)
+    return [limbs_to_numpy(evals_t),
+            limbs_to_numpy(fft.ifft_of_known_degree(evals_t, dt, d))]
+
+
+def _fft_reference(N, coset):
+    dim, shift, d, coeffs = _fft_case(N, coset)
+    dj = JaxCoset(Fj, dim, shift)
+    evals_j = np.asarray(jfft.fft(coeffs, dj))
+    # the reference interpolates over the size-d subdomain: its ifft there
+    return [evals_j, np.asarray(jfft.ifft_of_known_degree(evals_j, dj, d))]
+
+
+@pytest.mark.parametrize("N", [2, 8, 64, 256])
+@pytest.mark.parametrize("coset", [False, True])
+def test_fft_ifft_match_reference(N, coset):
+    assert _digest(_fft_port(N, coset)) == FFT_PINS[(N, coset)]
+
+
+@pytest.mark.slow
+def test_fft_reference_outputs_behind_the_pins():
+    for N, coset in FFT_CASES:
+        want = _fft_reference(N, coset)
+        for g, w in zip(_fft_port(N, coset), want):
+            np.testing.assert_array_equal(g, w)
+        assert _digest(want) == FFT_PINS[(N, coset)], (N, coset)
 
 
 def test_fft_matches_naive_evaluation():

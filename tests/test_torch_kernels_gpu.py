@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card, at shapes and broadcast patterns the main paths use, over edwards_Fr
-(6-word instantiations) and alt_bn128_Fr (8-word).  Marked gpu: each test
+(6-word instantiations) and alt_bn128_Fr (8-word), and the binary-field
+kernels over gf64, gf128, gf192 and gf256.  Marked gpu: each test
 skips without a CUDA device.  Imports nothing of JAX, so it also runs
 on a machine without it:
 
@@ -41,6 +42,19 @@ from libiop_tpu_torch.kernels.vanishing import (vanishing_divide,
                                                 vanishing_multiply_plain)
 from libiop_tpu_torch.protocols.fri import _fold_rows
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
+from libiop_tpu_torch.algebra import subspace
+from libiop_tpu_torch.fields import binary
+from libiop_tpu_torch.kernels.additive_fft import (additive_fft,
+                                                   additive_fft_plain)
+from libiop_tpu_torch.kernels.fri_fold_additive import (
+    fri_fold_additive, fri_fold_additive_plain)
+from libiop_tpu_torch.kernels.gf2k_mul import (gf2k_inv, gf2k_inv_plain,
+                                               gf2k_mul, gf2k_mul_plain,
+                                               gf2k_square, gf2k_square_plain)
+from libiop_tpu_torch.kernels.linearized import (linearized_divide,
+                                                 linearized_divide_plain,
+                                                 linearized_multiply,
+                                                 linearized_multiply_plain)
 
 pytestmark = pytest.mark.gpu
 FIELDS = {"edwards_Fr": edwards_fr, "alt_bn128_Fr": alt_bn128_fr}
@@ -371,3 +385,122 @@ def test_row_dot_matches_twin(dev):
                 case = (F.name, R, scalar_rows)
                 assert LAUNCHES["row_dot"] == before + 1, case
                 assert torch.equal(got, row_dot_plain(F, a, b)), case
+
+
+BINARY = ("gf64", "gf128", "gf192", "gf256")
+
+
+def _gf_elems(Fb, shape, seed, dev):
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    return Fb.from_ints(Fb.random_ints(n, rng), dev).reshape((Fb.W,) + shape)
+
+
+def test_gf2k_mul_square_inv_match_twins(dev):
+    """K16 over every binary width: products with equal shapes, a
+    broadcast scalar, row and column, squares, and inverses (0 included)."""
+    for name in BINARY:
+        Fb = getattr(binary, name)()
+        a = _gf_elems(Fb, (5, 67), 1, dev)
+        a[:, 0, 0] = 0
+        for b in (_gf_elems(Fb, (5, 67), 2, dev), _gf_elems(Fb, (1,), 3, dev),
+                  _gf_elems(Fb, (67,), 4, dev), _gf_elems(Fb, (5, 1), 5, dev)):
+            before = LAUNCHES["gf2k_mul"]
+            got = gf2k_mul(Fb, a, b)
+            torch.cuda.synchronize()
+            assert LAUNCHES["gf2k_mul"] == before + 1
+            assert torch.equal(got, gf2k_mul_plain(Fb, a, b)), (name, b.shape)
+        assert torch.equal(gf2k_square(Fb, a), gf2k_square_plain(Fb, a)), name
+        inv = gf2k_inv(Fb, a)
+        assert torch.equal(inv, gf2k_inv_plain(Fb, a)), name
+        assert Fb.to_ints(inv)[0, 0] == 0
+
+
+def test_additive_fft_matches_twin(dev):
+    """K17 forward and inverse over shifted subspaces of 2 to 2^12 points
+    and a random basis, gf64 and gf192; the inverse undoes the forward."""
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        rng = np.random.default_rng(7)
+        doms = [subspace.AffineSubspace(Fb, m, shift=1 << m)
+                for m in (1, 2, 5, 12)]
+        doms.append(subspace.AffineSubspace(
+            Fb, 6, shift=Fb.random_ints(1, rng)[0],
+            basis=Fb.random_ints(6, rng)))
+        for D in doms:
+            x = _gf_elems(Fb, (D.order,), D.dim, dev)
+            for inverse in (False, True):
+                tw, sums = subspace.fft_tables(D, dev, inverse)
+                before = LAUNCHES["additive_fft"]
+                got = additive_fft(Fb, x, tw, sums, inverse)
+                torch.cuda.synchronize()
+                assert LAUNCHES["additive_fft"] > before
+                assert torch.equal(got, additive_fft_plain(
+                    Fb, x, tw, sums, inverse)), (name, D.dim, inverse)
+            assert torch.equal(subspace.additive_ifft(
+                subspace.additive_fft(x, D), D), x), (name, D.dim)
+
+
+def test_linearized_matches_twin(dev):
+    """K18: division (one and many chunks, an uneven last chunk) and
+    multiplication by Z of subspaces of 2, 16 and 2^10 points."""
+    from libiop_tpu_torch.algebra.generic import linearized_vanishing
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        for dim, d in ((1, 9), (4, 17), (4, 300), (10, 2 * 1024 - 1),
+                       (10, 3000)):
+            H = subspace.AffineSubspace(Fb, dim, shift=1 << (dim + 3))
+            Z = linearized_vanishing(H)
+            terms = Z.coeffs_dense_positions()
+            below = [(g, c) for g, c in terms if g < H.order]
+            f = _gf_elems(Fb, (d,), d, dev)
+            got = linearized_divide(Fb, f, below, H.order)
+            want = linearized_divide_plain(Fb, f, below, H.order)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+                (name, dim, d)
+            assert torch.equal(linearized_multiply(Fb, f, terms, H.order),
+                               linearized_multiply_plain(Fb, f, terms,
+                                                         H.order))
+
+
+def test_fri_fold_additive_matches_twin(dev):
+    """K19 at eta 1, 2 and 3 over a shifted 2^10, at a random point and at
+    a domain element."""
+    from libiop_tpu_torch.protocols import fri
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        D = subspace.AffineSubspace(Fb, 10, shift=1 << 10)
+        v = _gf_elems(Fb, (D.order,), 3, dev)
+        for eta in (1, 2, 3):
+            Z = fri.localizer_vanishing(D, eta)
+            offs = fri.coset_vanishing_offsets(D, eta, Z, dev)
+            for x in (Fb.random_ints(1, np.random.default_rng(eta))[0],
+                      D.element_by_index_int(77)):
+                args = (Fb, v, D.elements(dev), offs, x,
+                        Z.eval_at_point_int(x), Fb.inv_int(Z.epsilon),
+                        1 << eta)
+                assert torch.equal(fri_fold_additive(*args),
+                                   fri_fold_additive_plain(*args)), \
+                    (name, eta, x)
+
+
+def test_fused_dag_binary_matches_twin(dev):
+    """K8's GF(2^k) instantiation on a tape with every op kind, scalars and
+    inputs, over every binary width."""
+    for name in BINARY:
+        Fb = getattr(binary, name)()
+        b = TapeRecorder()
+        x, y, z = b.input(), b.input(), b.input()
+        s = b.scalar()
+        t = b.mul(b.add(x, s), y)
+        u = b.sub(b.mul(t, z), x)
+        tape = b.finish([u, b.mul(u, u)])
+        n = 1000
+        inputs = [_gf_elems(Fb, (n,), k, dev) for k in range(3)]
+        scalars = Fb.random_ints(1, np.random.default_rng(9))
+        before = LAUNCHES["fused_dag"]
+        got = fused_dag(Fb, tape, inputs, scalars)
+        torch.cuda.synchronize()
+        assert LAUNCHES["fused_dag"] == before + 1
+        want = fused_dag_plain(Fb, tape, inputs, scalars)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), name

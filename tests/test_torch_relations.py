@@ -28,7 +28,7 @@ def test_example_generation_matches_reference():
     (cj, pj, aj), (ct, pt, at) = _pair(424242)
     assert (pt, at) == (pj, aj)
     assert ct.constraints == cj.constraints
-    assert r1cs_from_reference(3, 15, cj.constraints).constraints == \
+    assert r1cs_from_reference(Ft, 3, 15, cj.constraints).constraints == \
         ct.constraints
     assert ct.is_satisfied(pt, at)
 
