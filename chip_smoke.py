@@ -39,7 +39,22 @@ Phases (any failure exits non-zero and prints no result line):
 10. the same GF(2^192) path with make_zk=True (prover rng default_rng(0)),
     then K8 on its zk DAG and K18 on the largest and the deepest division
     and the largest product the binary paths gave it;
-11. print the card's name and power limit, the kernels JSON line, then the
+11. Fractal over edwards_Fr at 2^log_n constraints with bench.py's
+    configuration (bench.py:246-300: security 128, RS extra 2, FRI
+    localization 2, BLAKE2b, example default_rng(0) with 15 inputs,
+    prover rng default_rng(1)): indexer (timed apart), prove and verify,
+    non-zk then zk (salts from default_rng(7)), the same checks (a flipped
+    byte of the first round-1 root; the index roots are the verifier's);
+    K8 on the zk DAG; phase 4 also proves the JAX package's Fractal
+    configuration (tests/test_fractal.py:63-98) and its Ligero over
+    GF(2^64) and alt_bn128_Fr (tests/test_additive_aurora.py:114-137) to
+    their pinned digests;
+12. Ligero over GF(2^64) at 2^(log_n - 1) constraints (bench.py's Ligero
+    configuration), the same checks; then K20 and K21 against their twins
+    on the largest calls the Fractal paths made (K20 also on that input
+    with zeros written in), and K15's GF(2^k) instantiation and K17's
+    batched transform on the largest calls the GF(2^64) Ligero path made;
+13. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -68,6 +83,7 @@ from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,  # noqa: E402
 from libiop_tpu_torch.algebra import domains, generic, poly  # noqa: E402
 from libiop_tpu_torch.algebra import linearized as alg_linearized  # noqa: E402
 from libiop_tpu_torch.algebra import subspace  # noqa: E402
+from libiop_tpu_torch.fields import prime as prime_mod  # noqa: E402
 from libiop_tpu_torch.fields.binary import gf64, gf192  # noqa: E402
 from libiop_tpu_torch.kernels.additive_fft import (  # noqa: E402
     additive_fft, additive_fft_plain)
@@ -83,6 +99,8 @@ from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
 from libiop_tpu_torch.iop import runtime  # noqa: E402
 from libiop_tpu_torch.kernels import build  # noqa: E402
 from libiop_tpu_torch.kernels import poseidon as k9  # noqa: E402
+from libiop_tpu_torch.kernels.batch_inv import (batch_inv,  # noqa: E402
+                                                batch_inv_plain)
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows,  # noqa: E402
                                               blake2b_rows_plain, merkle_heap)
 from libiop_tpu_torch.kernels.ell_matvec import (ell_matvec,  # noqa: E402
@@ -98,6 +116,8 @@ from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
 from libiop_tpu_torch.kernels import place_columns as k13  # noqa: E402
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain  # noqa: E402
+from libiop_tpu_torch.kernels.p_alpha_m import (p_alpha_m,  # noqa: E402
+                                                p_alpha_m_plain)
 from libiop_tpu_torch.kernels.powers import powers, powers_plain  # noqa: E402
 from libiop_tpu_torch.kernels.row_dot import row_dot, row_dot_plain  # noqa: E402
 from libiop_tpu_torch.kernels.rs_encode import (rs_encode,  # noqa: E402
@@ -107,10 +127,14 @@ from libiop_tpu_torch.kernels.vanishing import (  # noqa: E402
     vanishing_multiply_plain)
 from libiop_tpu_torch.algebra.domains import MultiplicativeCoset  # noqa: E402
 from libiop_tpu_torch.protocols import common, fri, ligero  # noqa: E402
+from libiop_tpu_torch.protocols import holographic_lincheck  # noqa: E402
 from libiop_tpu_torch.relations.examples import generate_r1cs_example  # noqa: E402
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,  # noqa: E402
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
+from libiop_tpu_torch.snark.fractal import (  # noqa: E402
+    FractalSnarkParams, fractal_snark_indexer, fractal_snark_prover,
+    fractal_snark_verifier)
 from libiop_tpu_torch.snark.ligero import (LigeroSnarkParams,  # noqa: E402
                                            ligero_snark_prover,
                                            ligero_snark_verifier)
@@ -156,6 +180,34 @@ LIGERO_PINS = {
 ADDITIVE_PINS = {
     False: "8a7c80d5983fb537d0c3ea970110ffe7cbdbaf7020e54ea5f4ad3701273981e9",
     True: "ca0f0a1485857e5bc738f1778561db2a2c453c4c94588c26ed6c8cca5b0958dd"}
+
+#: the JAX package's Fractal SNARK in its test configuration
+#: (tests/test_fractal.py:63-98: 16 constraints, example from
+#: default_rng(12345), security 32, RS extra 1, FRI localization 1, pow 2,
+#: 4 queries, one repetition, one LDT instance, one lincheck repetition,
+#: indexer rng default_rng(2), prover rng default_rng(3), salts from
+#: default_rng(7)): make_zk -> (sha256 of the index roots in key order,
+#: sha256 of the proof)  (tests/test_torch_fractal.py)
+FRACTAL_PINS = {
+    False: ("5c1c47f95a92264ead18fbbad32f58b19c50fb18c470c0bb879581f224ec332a",
+            "c331495442d9c6c6e2bdbb6e43238d2842fe142ac184bef9dfb20858d7eb0ba0"),
+    True: ("cb5405b37a03ca61b33e69a8c4bf17e516a5453cce44a8a22c983ff76f4eaf4d",
+           "397b367b9f301b48f136b0e58f9953d204706230e5eca8a8f2836622ca1595d7")}
+
+#: the JAX package's Ligero SNARK in tests/test_additive_aurora.py:114-137
+#: (16 constraints, example from default_rng(41), security 32, RS extra 2,
+#: height/width 1.0, prover rng default_rng(42)) over GF(2^64) and over
+#: alt_bn128_Fr: case -> (field, hash_name, sha256)
+#: (tests/test_torch_ligero_additive.py)
+LIGERO_41_PINS = {
+    "gf64": ("gf64", "blake2b",
+             "f430a1dfffed9ba5d208c40fe3eb431572a43c92363955e22e706ee0cc6ae5ce"),
+    "bn128_blake2b": (
+        "alt_bn128", "blake2b",
+        "487792ef0780af2380ce49ef93c92584fe8a7929f60246bf0a384857e22a029a"),
+    "bn128_poseidon": (
+        "alt_bn128", "poseidon",
+        "a8b0f4f1b58a739b3af2202ced8907fa25919f3bd1b219b15609010a31d6da86")}
 
 # Least-time model of the H100 SXM (NVIDIA data sheet): 3.35 TB/s of HBM3;
 # 32-bit integer instructions at 64 lanes per SM x 132 SMs x 1.98 GHz boost.
@@ -221,7 +273,12 @@ def gf_batch_inv_ops(W):
 BLAKE2B_BLOCK_OPS = 12 * 8 * (6 + 4 + 3) * 2
 
 
+_T0 = time.time()
+
+
 def log(msg):
+    if msg.startswith("phase "):
+        msg += f" (at {time.time() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -889,6 +946,102 @@ def golden_additive(dev):
             "input rejected")
 
 
+def second_root_offset(blob):
+    """The offset of the first byte of a transcript's second Merkle root
+    (Fractal's first round-1 root: the verifier writes its own index roots
+    over round 0's): the 20 header bytes, then per root its (round,
+    domain) and length words and its bytes."""
+    first_len = int.from_bytes(blob[28:32], "little")
+    return 20 + 12 + first_len + 12
+
+
+def golden_fractal(dev):
+    """Phase 4, continued: the JAX package's Fractal configuration indexed,
+    proven and verified on the card, non-zk and zk: the index roots and the
+    proof hash to the pins; a flipped index root, a flipped round-1 root
+    and a wrong primary input are rejected."""
+    F = edwards_fr()
+    cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
+                                             np.random.default_rng(12345))
+    for make_zk, (want_roots, want) in sorted(FRACTAL_PINS.items()):
+        params = FractalSnarkParams(
+            security_parameter=32, RS_extra_dimensions=1,
+            fri_localization_parameter=1, make_zk=make_zk, pow_bits=2,
+            override_fri_queries=4, override_fri_interactive_repetitions=1,
+            override_ldt_instances=1, override_lincheck_repetitions=1)
+        pidx, vidx = fractal_snark_indexer(cs, params,
+                                           rng=np.random.default_rng(2),
+                                           device=dev)
+        roots = hashlib.sha256(b"".join(
+            r for _, r in sorted(vidx.items()))).hexdigest()
+        with seeded_salts():
+            blob = fractal_snark_prover(cs, primary, aux, pidx, params,
+                                        rng=np.random.default_rng(3),
+                                        device=dev).serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        tag = "fractal zk" if make_zk else "fractal"
+        log(f"  golden {tag} index roots sha256 {roots} proof sha256 "
+            f"{digest}")
+        if (roots, digest) != (want_roots, want):
+            raise AssertionError(f"golden {tag}: index roots or proof differ "
+                                 "from the JAX package's")
+        bad_index = dict(vidx)
+        key = sorted(bad_index)[0]
+        bad_index[key] = bytes([bad_index[key][0] ^ 1]) + bad_index[key][1:]
+        bad = bytearray(blob)
+        bad[second_root_offset(blob)] ^= 1
+        wrong = [(primary[0] + 1) % F.p] + list(primary[1:])
+        verdicts = [fractal_snark_verifier(
+            cs, prim, vi, BCSTranscript.deserialize(b), params, device=dev)
+            for prim, vi, b in ((primary, vidx, blob),
+                                (primary, bad_index, blob),
+                                (primary, vidx, bytes(bad)),
+                                (wrong, vidx, blob))]
+        if verdicts != [True, False, False, False]:
+            raise AssertionError(f"golden {tag}: verifier gave {verdicts} "
+                                 "for (proof, flipped index root, flipped "
+                                 "round-1 root, wrong input)")
+        log(f"  {tag} verify True; flipped index root, flipped round-1 root "
+            "and wrong primary input rejected")
+
+
+def golden_ligero_41(dev, calls):
+    """Phase 4, continued: the JAX package's Ligero configuration of
+    tests/test_additive_aurora.py:114-137 over GF(2^64) (the repaired
+    binary path; its K15 and K17 calls land in calls) and over alt_bn128_Fr
+    with BLAKE2b and Poseidon."""
+    fields = {"gf64": gf64, "alt_bn128": alt_bn128_fr}
+    for case, (field, hash_name, want) in sorted(LIGERO_41_PINS.items()):
+        F = fields[field]()
+        cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
+                                                 np.random.default_rng(41))
+        params = LigeroSnarkParams(security_parameter=32,
+                                   RS_extra_dimensions=2,
+                                   height_width_ratio=1.0,
+                                   hash_name=hash_name)
+        with kernel_calls(calls if field == "gf64" else {}):
+            blob = ligero_snark_prover(cs, primary, aux, params,
+                                       rng=np.random.default_rng(42),
+                                       device=dev).serialize()
+        digest = hashlib.sha256(blob).hexdigest()
+        log(f"  golden ligero {case} sha256 {digest}")
+        if digest != want:
+            raise AssertionError(f"golden ligero {case} transcript differs "
+                                 "from the JAX package's")
+        bad = bytearray(blob)
+        bad[32] ^= 1
+        wrong = [F.add_ints(primary[0], 1)] + list(primary[1:])
+        verdicts = [ligero_snark_verifier(cs, prim, BCSTranscript.deserialize(
+            b), params, device=dev) for prim, b in ((primary, blob),
+                                                     (primary, bytes(bad)),
+                                                     (wrong, blob))]
+        if verdicts != [True, False, False]:
+            raise AssertionError(f"golden ligero {case}: verifier gave "
+                                 f"{verdicts}")
+        log(f"  ligero {case} verify True; flipped byte and wrong primary "
+            "input rejected")
+
+
 #: the wrappers of K9-K15 as the main path calls them (module, name), the
 #: record key, and the size of a call by which the largest one is kept; a
 #: division is kept twice: the widest (most coefficients) and the deepest
@@ -916,7 +1069,12 @@ _RECORDED = [
     (alg_linearized, "linearized_divide", "linearized_divide_deep",
      lambda F, f, terms, h: f.shape[1] // max(1, h // 2)),
     (generic, "linearized_multiply", "linearized_multiply",
-     lambda F, f, terms, h: f.numel())]
+     lambda F, f, terms, h: f.numel()),
+    (prime_mod, "batch_inv", "batch_inv", lambda F, a, c=None: a.numel()),
+    (holographic_lincheck, "p_alpha_m", "p_alpha_m",
+     lambda F, plans, p, r, inv, S: inv.numel()),
+    (subspace, "_k17", "additive_fft_batched",
+     lambda F, S, tw, sums, inverse=False: S.numel() if S.ndim == 3 else -1)]
 
 
 @contextlib.contextmanager
@@ -926,11 +1084,11 @@ def kernel_calls(record):
     saved = []
 
     def spy(key, fn, size_of):
-        def recorded(*args):
-            size = size_of(*args)
+        def recorded(*args, **kw):
+            size = size_of(*args, **kw)
             if size > record.get(key, (-1, None))[0]:
-                record[key] = (size, args)
-            return fn(*args)
+                record[key] = (size, args + tuple(kw.values()))
+            return fn(*args, **kw)
         return recorded
 
     for mod, name, key, size_of in _RECORDED:
@@ -1005,18 +1163,34 @@ def fused_calls(record):
 #: combination eagerly (K1 and K5), not as a fused DAG.
 _BINARY_KERNELS = {"gf2k_mul", "additive_fft", "linearized",
                    "fri_fold_additive"}
+_FRACTAL_KERNELS = {"p_alpha_m"}
 _NOT_ON_PATH = {
     "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"}
-    | _BINARY_KERNELS,
+    | _BINARY_KERNELS | _FRACTAL_KERNELS,
     "aurora_poseidon": {"blake2b_rows", "lazy_reduce", "rs_encode",
-                        "row_dot"} | _BINARY_KERNELS,
+                        "row_dot"} | _BINARY_KERNELS | _FRACTAL_KERNELS,
     "ligero": {"poseidon", "lazy_reduce", "fri_fold", "fused_dag",
-               "vanishing", "place_columns"} | _BINARY_KERNELS,
+               "vanishing", "place_columns", "batch_inv"} | _BINARY_KERNELS
+    | _FRACTAL_KERNELS,
     # over a binary field K16-K19 take the prime kernels' places: products,
-    # power tables, Horner and the sparse products are K16 + torch
+    # power tables, Horner, the sparse products and the inverses are K16 +
+    # torch
     "aurora_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                       "lazy_reduce", "ell_matvec", "poseidon", "horner",
-                      "powers", "vanishing", "rs_encode", "row_dot"}}
+                      "powers", "vanishing", "rs_encode", "row_dot",
+                      "batch_inv"} | _FRACTAL_KERNELS,
+    # Fractal encodes no rows (no Ligero), evaluates no polynomial by
+    # Horner (its lincheck's p_alpha is a closed form) and reduces no lazy
+    # sum outside its kernels
+    "fractal": {"poseidon", "lazy_reduce", "rs_encode", "row_dot", "horner"}
+    | _BINARY_KERNELS,
+    # Ligero over GF(2^k): K16 products, K17 row encodes, K15 row sums,
+    # BLAKE2b trees; its LDT is the direct one (no fold, no DAG)
+    "ligero_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
+                      "lazy_reduce", "ell_matvec", "fused_dag", "poseidon",
+                      "horner", "powers", "vanishing", "place_columns",
+                      "rs_encode", "linearized", "fri_fold_additive",
+                      "batch_inv"} | _FRACTAL_KERNELS}
 
 AURORA = (aurora_snark_prover, aurora_snark_verifier)
 LIGERO = (ligero_snark_prover, ligero_snark_verifier)
@@ -1037,13 +1211,26 @@ def ligero_params(make_zk):
                              height_width_ratio=0.1, make_zk=make_zk)
 
 
+def fractal_params(make_zk):
+    """bench.py's Fractal configuration (bench.py:246-300)."""
+    return FractalSnarkParams(security_parameter=128, RS_extra_dimensions=2,
+                              fri_localization_parameter=2, make_zk=make_zk)
+
+
+FRACTAL = (fractal_snark_indexer, fractal_snark_prover,
+           fractal_snark_verifier)
+
+
 def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
               calls):
-    """Phases 5-8: prove and verify with snark = (prover, verifier) and
-    params over F; the prover's rng is default_rng(seed) (None when seed
-    is None).  Every kernel outside ``off_path`` must be launched; the
-    largest call of each K9-K15 wrapper lands in calls."""
-    prover, verifier = snark
+    """Phases 5-12: prove and verify with snark = (prover, verifier), or
+    (indexer, prover, verifier) for Fractal, and params over F; the
+    prover's rng is default_rng(seed) (None when seed is None).  The
+    indexer runs first, timed apart, inside the counted run.  Every kernel
+    outside ``off_path`` must be launched; the largest call of each
+    recorded wrapper lands in calls."""
+    indexer = snark[0] if len(snark) == 3 else None
+    prover, verifier = snark[-2:]
     make_zk = params.make_zk
     rng = (lambda: None) if seed is None else (
         lambda: np.random.default_rng(seed))
@@ -1060,12 +1247,30 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     record = {}
+    index_s = None
     with no_twin_on_cuda(), kernel_calls(calls):
         kernels.reset_launch_counts()
         PROFILER.records.clear()
+        if indexer is not None:
+            t0 = time.time()
+            pidx, vidx = indexer(cs, params, device=dev)
+            torch.cuda.synchronize()
+            index_s = time.time() - t0
+            real_prover, real_verifier = prover, verifier
+
+            def prover(cs, primary, aux, params, rng, device):
+                return real_prover(cs, primary, aux, pidx, params, rng=rng,
+                                   device=device)
+
+            def verifier(cs, primary, transcript, params, device):
+                return real_verifier(cs, primary, vidx, transcript, params,
+                                     device=device)
         t0 = time.time()
+        for k in runtime.DAG_ROUTES:
+            runtime.DAG_ROUTES[k] = 0
         with fused_calls(record):
             proof = prover(cs, primary, aux, params, rng=rng(), device=dev)
+        routes = dict(runtime.DAG_ROUTES)
         torch.cuda.synchronize()
         prove_s = time.time() - t0
         launches_prove = dict(kernels.LAUNCHES)
@@ -1079,7 +1284,9 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
         launches = dict(kernels.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     bad = bytearray(blob)
-    bad[32] ^= 1  # first byte of the first Merkle root
+    # first byte of the first Merkle root; Fractal's verifier writes its
+    # own index roots over round 0's, so there the first round-1 root
+    bad[32 if indexer is None else second_root_offset(blob)] ^= 1
     tampered_ok = verifier(cs, primary, BCSTranscript.deserialize(bytes(bad)),
                            params, device=dev)
     wrong = [F.add_ints(primary[0], 1)] + list(primary[1:])
@@ -1104,6 +1311,7 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
     log(json.dumps({"stage": label, "field": F.name,
                     "hash": params.hash_name,
                     "log_n": int(cs.num_constraints).bit_length() - 1,
+                    "index_s": index_s,
                     "prove_s": prove_s, "warm_prove_s": warm_prove_s,
                     "verify_s": verify_s, "verified": ok,
                     "flipped_byte_rejected": not tampered_ok,
@@ -1114,6 +1322,7 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
                     "peak_memory_of_path": peak - held, "launches": launches,
                     "launches_prove": launches_prove,
                     "fused_calls_prove": record.get("calls", 0),
+                    "dag_routes_prove": routes,
                     "warm_prove_device_time": device_time,
                     "warm_prove_host_time": host_time,
                     "verify_host_time": verify_host_time,
@@ -1228,13 +1437,12 @@ def check_recorded(F, calls, launched):
         bp, elems = calls["poseidon_merkle_heap"][1]
         _, k, n = elems.shape
         prods, wide, redcs, adds = poseidon_work(bp, k, n)
+        want, plain_ms = timed_once(
+            lambda: k9.poseidon_merkle_heap_plain(bp, elems))
         row("poseidon", "libiop_tpu_torch/csrc/poseidon.cu",
             "libiop_tpu/bcs/poseidon.py:263",
-            max_abs_err(k9.poseidon_merkle_heap(bp, elems),
-                        k9.poseidon_merkle_heap_plain(bp, elems)),
-            time_ms(lambda: k9.poseidon_merkle_heap(bp, elems)),
-            time_ms(lambda: k9.poseidon_merkle_heap_plain(bp, elems),
-                    reps=1, warmup=0),
+            max_abs_err(k9.poseidon_merkle_heap(bp, elems), want),
+            time_ms(lambda: k9.poseidon_merkle_heap(bp, elems)), plain_ms,
             eb * (k * n + 2 * n),
             prods * mo + (wide + redcs) * half_mont_ops(F) + adds * ao,
             f"tree of 2^{n.bit_length() - 1} leaves x {k} elements "
@@ -1242,11 +1450,11 @@ def check_recorded(F, calls, launched):
 
     _, (_, coeffs, x) = calls["horner"]
     d, k = coeffs.shape[1], x.shape[1]
+    want, plain_ms = timed_once(lambda: horner_plain(F, coeffs, x))
     row("horner", "libiop_tpu_torch/csrc/horner.cu",
         "libiop_tpu/algebra/poly.py:184",
-        max_abs_err(horner(F, coeffs, x), horner_plain(F, coeffs, x)),
-        time_ms(lambda: horner(F, coeffs, x)),
-        time_ms(lambda: horner_plain(F, coeffs, x), reps=1, warmup=0),
+        max_abs_err(horner(F, coeffs, x), want),
+        time_ms(lambda: horner(F, coeffs, x)), plain_ms,
         eb * (d + 2 * k), d * k * (mo + ao),
         f"d = {d} at {k} points (m, S = {blocking(d)})")
 
@@ -1262,11 +1470,12 @@ def check_recorded(F, calls, launched):
     err, ms, plain, nbytes, nops, shape = 0, 0.0, 0.0, 0, 0, []
     for key in ("vanishing_divide", "vanishing_divide_deep"):
         _, (_, f, a, h) = calls[key]
+        want, plain_ms = timed_once(
+            lambda: vanishing_divide_plain(F, f, a, h))
         err = max(err, *(max_abs_err(g, w) for g, w in zip(
-            vanishing_divide(F, f, a, h), vanishing_divide_plain(F, f, a, h))))
+            vanishing_divide(F, f, a, h), want)))
         ms += time_ms(lambda: vanishing_divide(F, f, a, h))
-        plain += time_ms(lambda: vanishing_divide_plain(F, f, a, h), reps=1,
-                         warmup=0)
+        plain += plain_ms
         nb = f.shape[1] // h
         nbytes += eb * 2 * nb * h
         nops += (nb - 1) * h * (mo + ao)
@@ -1319,6 +1528,106 @@ def check_recorded(F, calls, launched):
         if err:
             raise AssertionError(f"{name} ({F.name}) disagrees with its "
                                  "plain twin on a path's call")
+    return rows
+
+
+def check_fractal_recorded(F, calls):
+    """Phase 12: K20 against its twin on the largest call the Fractal paths
+    made and on that input with zeros written into it, and K21 on its
+    largest call; each a row of the kernels line.  K20's bound counts three
+    products an element (Montgomery's trick) and one more for a fused
+    numerator; K21's one product a nonzero."""
+    missing = [k for k in ("batch_inv", "p_alpha_m") if k not in calls]
+    if missing:
+        raise AssertionError(f"{F.name}: no recorded Fractal call for "
+                             f"{missing}")
+    eb, mo = elem_bytes(F), mont_ops(F)
+    rows = []
+    _, (_, a, *c) = calls["batch_inv"]
+    c = c[0] if c else None
+    zeroed = a.clone()
+    zeroed[:, ::97] = 0
+    n = a[0].numel()
+    errs = [max_abs_err(batch_inv(F, x, c), batch_inv_plain(F, x, c))
+            for x in (a, zeroed)]
+    bms, by = bound_ms(eb * n * (3 if c is not None else 2),
+                       n * mo * (4 if c is not None else 3))
+    rows.append(dict(
+        name="batch_inv", route="cuda",
+        source="libiop_tpu_torch/csrc/batch_inv.cu",
+        replaces="libiop_tpu/fields/prime.py:447", max_abs_err=max(errs),
+        ms=time_ms(lambda: batch_inv(F, a, c)),
+        plain_ms=time_ms(lambda: batch_inv_plain(F, a, c)),
+        bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+        paths=("fractal_zk", "fractal"),
+        shape=f"2^{n.bit_length() - 1} {'c/a' if c is not None else '1/a'}"
+              f" (and with zeros)"))
+    _, (_, plans, p, r, inv, S) = calls["p_alpha_m"]
+    nnz = sum(plan[2].numel() for plan in plans)
+    nv = inv.numel()
+    # p read once, each nonzero's value and src once, each matrix's column
+    # offsets, the placement and the output once
+    bms, by = bound_ms(p.shape[1] * eb + nnz * (eb + 8)
+                       + len(plans) * (S + 1) * 8 + nv * (eb + 8), nnz * mo)
+    rows.append(dict(
+        name="p_alpha_m", route="cuda",
+        source="libiop_tpu_torch/csrc/p_alpha_m.cu",
+        replaces="libiop_tpu/protocols/holographic_lincheck.py:134",
+        max_abs_err=max_abs_err(p_alpha_m(F, plans, p, r, inv, S),
+                                p_alpha_m_plain(F, plans, p, r, inv, S)),
+        ms=time_ms(lambda: p_alpha_m(F, plans, p, r, inv, S)),
+        plain_ms=time_ms(lambda: p_alpha_m_plain(F, plans, p, r, inv, S)),
+        bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+        paths=("fractal_zk", "fractal"),
+        shape=f"{len(plans)} matrices, {nnz} nonzeros, {nv} slots"))
+    for row in rows:
+        report(row)
+    return rows
+
+
+def check_ligero_binary_recorded(F, calls):
+    """Phase 12, continued: K15's GF(2^k) instantiation and K17's batched
+    transform against their twins on the largest calls the GF(2^64) Ligero
+    path made; each a row of the kernels line."""
+    missing = [k for k in ("row_dot", "additive_fft_batched")
+               if k not in calls]
+    if missing:
+        raise AssertionError(f"{F.name}: no recorded Ligero call for "
+                             f"{missing}")
+    W, eb = F.W, elem_bytes(F)
+    rows = []
+    _, (_, a, b) = calls["row_dot"]
+    _, R, N = a.shape
+    bms, by = bound_ms(eb * (R * N + b[0].numel() + N),
+                       R * N * (gf_mul_ops(W) - 16 * W + 2 * W) + N * 16 * W)
+    rows.append(dict(
+        name="row_dot", route="cuda", source="libiop_tpu_torch/csrc/row_dot.cu",
+        replaces="libiop_tpu/protocols/ligero.py:92",
+        max_abs_err=max_abs_err(row_dot(F, a, b), row_dot_plain(F, a, b)),
+        ms=time_ms(lambda: row_dot(F, a, b)),
+        plain_ms=time_ms(lambda: row_dot_plain(F, a, b)),
+        bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+        shape=f"GF(2^{32 * W}) a {tuple(a.shape)}, b {tuple(b.shape)}"))
+    _, (_, S, tw, sums, inverse) = calls["additive_fft_batched"]
+    _, R, n = S.shape
+    m = n.bit_length() - 1
+    passes = sum(max(0, m - 1 - j) for j in range(m))
+    bms, by = bound_ms(eb * 2 * R * n + eb * 3 * n,
+                       R * (m * (n + n // 2) * gf_mul_ops(W)
+                            + passes * (n // 4) * 3 * W))
+    rows.append(dict(
+        name="additive_fft", route="cuda",
+        source="libiop_tpu_torch/csrc/additive_fft.cu",
+        replaces="libiop_tpu/protocols/ligero.py:86",
+        max_abs_err=max_abs_err(additive_fft(F, S, tw, sums, inverse),
+                                additive_fft_plain(F, S, tw, sums, inverse)),
+        ms=time_ms(lambda: additive_fft(F, S, tw, sums, inverse)),
+        plain_ms=time_ms(lambda: additive_fft_plain(F, S, tw, sums, inverse),
+                         reps=1, warmup=0),
+        bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+        shape=f"{'IFFT' if inverse else 'FFT'} of {R} rows of 2^{m}"))
+    for row in rows:
+        report(row)
     return rows
 
 
@@ -1409,9 +1718,13 @@ def main():
     golden_poseidon(dev)
     golden_ligero(dev)
     golden_additive(dev)
+    golden_fractal(dev)
+    Fl = gf64()
+    calls = {F.name: {}, Fb.name: {}, Fg.name: {}, Fl.name: {},
+             "fractal": {}}
+    golden_ligero_41(dev, calls[Fl.name])
 
     paths = {}
-    calls = {F.name: {}, Fb.name: {}, Fg.name: {}}
     log(f"phase 5: Aurora main path at 2^{args.log_n} constraints")
     paths["aurora"], _, _ = main_path(
         F, dev, cs, primary, aux, "aurora", AURORA,
@@ -1467,13 +1780,37 @@ def main():
     del record
     rows += check_binary_recorded(Fg, calls[Fg.name])
     field_paths[Fg.name] = ("aurora_gf192_zk", "aurora_gf192")
+
+    log(f"phase 11: Fractal at 2^{args.log_n} constraints, indexer apart, "
+        "non-zk and zk")
+    paths["fractal"], _, _ = main_path(
+        F, dev, cs, primary, aux, "fractal", FRACTAL, fractal_params(False),
+        1, _NOT_ON_PATH["fractal"], calls["fractal"])
+    paths["fractal_zk"], _, record = main_path(
+        F, dev, cs, primary, aux, "fractal_zk", FRACTAL, fractal_params(True),
+        1, _NOT_ON_PATH["fractal"], calls["fractal"])
+    rows.append(check_fused_dag(F, record) | {"paths": ("fractal_zk",)})
+    del record
+
+    # one size below the other cells: its verify's host GF(2^64) products
+    # (~6 s at 2^16, run four times) would cost the run ~15 s more
+    log(f"phase 12: Ligero over GF(2^64) at 2^{args.log_n - 1} constraints")
+    cs_l, primary_l, aux_l = generate_r1cs_example(
+        Fl, n // 2, 15, n // 2 - 1, np.random.default_rng(0))
+    paths["ligero_gf64"], _, _ = main_path(
+        Fl, dev, cs_l, primary_l, aux_l, "ligero_gf64", LIGERO,
+        ligero_params(False), 1, _NOT_ON_PATH["ligero_binary"], calls[Fl.name])
+    del cs_l, primary_l, aux_l
+    rows += check_fractal_recorded(F, calls["fractal"])
+    rows += check_ligero_binary_recorded(Fl, calls[Fl.name])
+    field_paths[Fl.name] = ("ligero_gf64",)
     del calls
 
-    log("phase 11: results")
+    log("phase 13: results")
     for r in rows:
-        # the row's main path: the first of its field's paths (zk first)
-        # that launched it
-        cands = field_paths[r["field"]]
+        # the row's main path: the first of its field's paths (zk first),
+        # or of the paths it names, that launched it
+        cands = r.pop("paths", None) or field_paths[r["field"]]
         main = next((p for p in cands if paths[p][r["name"]] > 0), cands[0])
         r["main_path"] = main
         r["launches"] = paths[main][r["name"]]

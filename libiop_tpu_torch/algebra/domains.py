@@ -127,6 +127,10 @@ class MultiplicativeCoset:
         return self._table("sinv", pow(self.shift, self.field.p - 2,
                                        self.field.p), 1, device)
 
+    def elements(self, device):
+        """(L, order) shift * g^k (Montgomery) on ``device``."""
+        return self._table("elem", self.g, self.shift, device)
+
     def inverse_elements(self, device):
         F = self.field
         return self._table("einv", pow(self.g, F.p - 2, F.p),

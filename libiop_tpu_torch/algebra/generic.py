@@ -152,7 +152,7 @@ def lagrange_coeffs_ints_any(domain, x: int) -> List[int]:
             cache[x] = out
             return out
     z_x = vanishing_eval_int(domain, x)
-    zps = _vanishing_derivative_list(domain)
+    zps = vanishing_derivative_list(domain)
     denoms = [F.mul_ints(zps[i], F.sub_ints(x, e)) for i, e in enumerate(elems)]
     out = [F.mul_ints(z_x, v) for v in batch_inv_ints(F, denoms)]
     cache[x] = out
@@ -175,7 +175,7 @@ def batch_inv_ints(F, vals: List[int]) -> List[int]:
     return out
 
 
-def _vanishing_derivative_list(domain) -> List[int]:
+def vanishing_derivative_list(domain) -> List[int]:
     """[Z'(e_i)]: the constant eps over a subspace, h s^{h-1} g^{-i} over a
     coset; memoized per domain."""
     hit = getattr(domain, "_zprime_list", None)

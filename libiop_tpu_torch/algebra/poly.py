@@ -5,7 +5,8 @@ Port of libiop_tpu/algebra/poly.py (multiplicative parts).  For a coset H of
 order h and shift s, Z_H(x) = x^h - s^h; its evaluations over another coset
 repeat with period |L|/gcd(|L|, h), so only that short cycle is computed.
 Multiplication and division by Z_H run through kernel K12
-(kernels/vanishing.py) and evaluation through K10 (kernels/horner.py).
+(kernels/vanishing.py), evaluation through K10 (kernels/horner.py) and the
+inverses through K20 (kernels/batch_inv.py).
 """
 from __future__ import annotations
 
@@ -38,7 +39,8 @@ def vanishing_evals_over(H: MultiplicativeCoset, L: MultiplicativeCoset,
 
 def vanishing_inverse_evals_over(H: MultiplicativeCoset,
                                  L: MultiplicativeCoset, device):
-    """1/Z_H over L (L disjoint from H); inverts only the short cycle."""
+    """1/Z_H over L (L disjoint from H); inverts only the short cycle (one
+    K20 launch)."""
     F = H.field
     N = L.order
     distinct = N // gcd(N, H.order)
@@ -46,6 +48,36 @@ def vanishing_inverse_evals_over(H: MultiplicativeCoset,
     if distinct < N:
         inv = inv.repeat(1, N // distinct)
     return inv
+
+
+def lagrange_poly_evals_over(H: MultiplicativeCoset, alpha: int,
+                             L: MultiplicativeCoset, device) -> torch.Tensor:
+    """(limbs, |L|) evaluations of the unnormalized Lagrange polynomial
+    p_alpha(Y) = (Z_H(alpha) - Z_H(Y)) / (alpha - Y) over L (alpha a host
+    int outside L): the division is one K20 launch, the inverse of
+    alpha - Y fused with the product by the numerator."""
+    F = H.field
+    h = H.order
+    z_alpha = (pow(alpha, h, F.p) - pow(H.shift, h, F.p)) % F.p
+    z_over_L = vanishing_evals_over(H, L, device)
+    num = F.sub(F.from_ints([z_alpha], device).reshape(F.L, 1).expand(
+        F.L, L.order), z_over_L)
+    denom = F.sub(F.from_ints([alpha % F.p], device).reshape(F.L, 1).expand(
+        F.L, L.order), L.elements(device))
+    return F.batch_inverse_and_mul(denom, num)
+
+
+def lagrange_poly_eval_at_point_int(H: MultiplicativeCoset, alpha: int,
+                                    x: int) -> int:
+    """Host-int p_alpha(x); x == alpha gives the derivative Z'_H(alpha)."""
+    p = H.field.p
+    alpha %= p
+    x %= p
+    if x == alpha:
+        return H.order * pow(alpha, H.order - 1, p) % p
+    z_a = (pow(alpha, H.order, p) - pow(H.shift, H.order, p)) % p
+    z_x = (pow(x, H.order, p) - pow(H.shift, H.order, p)) % p
+    return (z_a - z_x) * pow((alpha - x) % p, p - 2, p) % p
 
 
 def mul_by_vanishing(coeffs: torch.Tensor, H: MultiplicativeCoset):

@@ -167,17 +167,20 @@ def fft_tables(domain: AffineSubspace, device, inverse: bool):
 
 def additive_fft(coeffs: torch.Tensor, domain: AffineSubspace) -> torch.Tensor:
     """Evaluate (W, d <= n) coefficients over the subspace: (W, n) in
-    subset-sum order (kernel K17 on the card)."""
+    subset-sum order; (W, R, d) evaluates R polynomials, (W, R, n) (kernel
+    K17 on the card, one batched transform)."""
     F = domain.field
     n = domain.order
     d = coeffs.shape[-1]
     if d < n:
-        coeffs = torch.cat([coeffs, F.zeros((n - d,), coeffs.device)], dim=1)
+        coeffs = torch.cat([coeffs, F.zeros(coeffs.shape[1:-1] + (n - d,),
+                                             coeffs.device)], dim=-1)
     tw, sums = fft_tables(domain, coeffs.device, inverse=False)
     return _k17(F, coeffs.contiguous(), tw, sums, inverse=False)
 
 
 def additive_ifft(evals: torch.Tensor, domain: AffineSubspace) -> torch.Tensor:
-    """Inverse of additive_fft: (W, n) evaluations -> (W, n) coefficients."""
+    """Inverse of additive_fft: (W, n) evaluations -> (W, n) coefficients
+    (or (W, R, n) -> (W, R, n))."""
     tw, sums = fft_tables(domain, evals.device, inverse=True)
     return _k17(domain.field, evals.contiguous(), tw, sums, inverse=True)

@@ -40,6 +40,14 @@ class MerkleTree:
         hashed with."""
         return cls(hasher, num_leaves, heap, root, salts)
 
+    @classmethod
+    def from_nodes(cls, hasher, num_leaves: int, heap: torch.Tensor
+                   ) -> "MerkleTree":
+        """Rehydrate a tree persisted by an indexer from its node heap (the
+        layout ``from_device_heap`` keeps): no leaf is serialized or
+        hashed, only the root is read back."""
+        return cls(hasher, num_leaves, heap, hasher.heap_digests(heap, [1])[0])
+
     def reveal_salts(self, positions: Sequence[int]) -> List[bytes]:
         """The salts of the (sorted, deduplicated) leaf positions."""
         assert self.make_zk

@@ -7,7 +7,9 @@ absorbs roots and messages into the hashchain (BLAKE2b or the Poseidon
 sponge) and squeezes the round's verifier randomness; after the last round
 it grinds the pow (BLAKE2b for every hash, as the reference's).
 A tree holding a zk oracle is salted: one ``secrets.token_bytes`` blob per
-such tree, in tree order, as the reference draws it.  ``get_transcript``
+such tree, in tree order, as the reference draws it.  Trees preloaded
+from a holographic index (``preload_index_trees``) are rehydrated from
+their nodes, with no leaf serialized or hashed.  ``get_transcript``
 replays every registered query, collects the real-oracle positions per tree
 and builds pruned multi-proofs (with the queried leaves' salts).
 """
@@ -34,6 +36,12 @@ class BCSProver(IOPProtocol):
         self.mt_leaf_blocks: Dict[Tuple[int, int], object] = {}
         self.mt_roots: Dict[Tuple[int, int], bytes] = {}
         self.pow_nonce = 0
+        self._preloaded_trees: Dict[Tuple[int, int], tuple] = {}
+
+    def preload_index_trees(self, mt_data: Dict[Tuple[int, int], tuple]):
+        """Install persisted round-0 trees {(0, domain id): (leaf blocks,
+        node heap)}, so the index round costs no hashing."""
+        self._preloaded_trees = dict(mt_data)
 
     def _round_oracle_groups(self, rnd: int) -> List[Tuple[int, List[int]]]:
         """[(domain_id, [oracle ids])] of a round, both ascending."""
@@ -49,16 +57,23 @@ class BCSProver(IOPProtocol):
         rp = self.get_round_parameters(rnd)
         for dom_id, oracle_ids in self._round_oracle_groups(rnd):
             dom = self.domains[dom_id]
-            evals = [self.oracle_evals[i] for i in oracle_ids]
             num_leaves = dom.num_elements() // rp.quotient_map_size
-            salts = None
-            if any(self.oracle_regs[i].make_zk for i in oracle_ids):
-                salts = secrets.token_bytes(num_leaves * self.hasher.salt_bytes)
-            with PROFILER.block(f"leaf_hash_dev_r{rnd}_d{dom_id}"):
-                root, heap, blocks = self.hasher.device_leaf_digests(
-                    self.F, evals, dom, rp.quotient_map_size, salts=salts)
-            mt = MerkleTree.from_device_heap(self.hasher, num_leaves, heap,
-                                             root, salts=salts)
+            preloaded = self._preloaded_trees.get((rnd, dom_id))
+            if preloaded is not None:
+                blocks, heap = preloaded
+                mt = MerkleTree.from_nodes(self.hasher, num_leaves, heap)
+                root = mt.root
+            else:
+                evals = [self.oracle_evals[i] for i in oracle_ids]
+                salts = None
+                if any(self.oracle_regs[i].make_zk for i in oracle_ids):
+                    salts = secrets.token_bytes(
+                        num_leaves * self.hasher.salt_bytes)
+                with PROFILER.block(f"leaf_hash_dev_r{rnd}_d{dom_id}"):
+                    root, heap, blocks = self.hasher.device_leaf_digests(
+                        self.F, evals, dom, rp.quotient_map_size, salts=salts)
+                mt = MerkleTree.from_device_heap(self.hasher, num_leaves,
+                                                 heap, root, salts=salts)
             self.merkle_trees[(rnd, dom_id)] = mt
             self.mt_leaf_blocks[(rnd, dom_id)] = blocks
             self.mt_roots[(rnd, dom_id)] = root

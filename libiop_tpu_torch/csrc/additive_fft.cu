@@ -13,7 +13,10 @@
 // Design (first, simple): one launch per twist level, per radix stride,
 // for the bit reversal and per unwind level, one thread per element,
 // group of four or pair; the C launcher walks the levels itself (one ctypes
-// call an FFT) and reports how many kernels it launched.  The tables are
+// call an FFT) and reports how many kernels it launched.  A batch of R
+// transforms of one domain ((W, R, n) words, as Ligero encodes its rows)
+// shares the tables and every launch: element i of row r is flat index
+// r n + i of the R n elements, and the level steps act on i.  The tables are
 // built on the card and memoized per domain by the caller: twist powers of
 // every level in one flat (W, 2n - 2) table (level j at 2n - 2(n >> j)),
 // subset sums in one flat (W, n - 1) table (level j at 2^j - 1).
@@ -35,31 +38,33 @@ unsigned blocks_for(size_t n) {
   return (unsigned)((n + kThreads - 1) / kThreads);
 }
 
-// S[i] *= tw[off + (i >> j)]
+// S[r n + i] *= tw[off + (i >> j)] over the N = R n elements
 template <int W>
 __global__ void twist_kernel(uint32_t* __restrict__ S,
                              const uint32_t* __restrict__ tw, size_t tw_len,
-                             size_t off, size_t n, int j, gf::Taps T) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+                             size_t off, size_t n, size_t N, int j,
+                             gf::Taps T) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N) return;
   uint32_t x[W], y[W];
-  gf::load<W>(x, S, n, i);
-  gf::load<W>(y, tw, tw_len, off + (i >> j));
+  gf::load<W>(x, S, N, e);
+  gf::load<W>(y, tw, tw_len, off + ((e % n) >> j));
   gf::mul<W>(x, x, y, T);
-  gf::store<W>(S, n, i, x);
+  gf::store<W>(S, N, e, x);
 }
 
 // groups of four at stride s: forward x2 ^= x3, x1 ^= x2; inverse
 // x1 ^= x2, x2 ^= x3
 template <int W>
-__global__ void radix_kernel(uint32_t* __restrict__ S, size_t n, size_t s,
-                             int inverse) {
-  const size_t g = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (g >= n / 4) return;
-  const size_t base = (g / s) * 4 * s + g % s;
+__global__ void radix_kernel(uint32_t* __restrict__ S, size_t n, size_t N,
+                             size_t s, int inverse) {
+  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= N / 4) return;
+  const size_t g = q % (n / 4);
+  const size_t base = (q / (n / 4)) * n + (g / s) * 4 * s + g % s;
 #pragma unroll
   for (int w = 0; w < W; ++w) {
-    uint32_t* row = S + w * n + base;
+    uint32_t* row = S + w * N + base;
     const uint32_t x1 = row[s], x2 = row[2 * s], x3 = row[3 * s];
     if (inverse) {
       row[s] = x1 ^ x2;
@@ -78,12 +83,12 @@ __device__ __forceinline__ size_t bit_reverse(size_t i, int m) {
 template <int W>
 __global__ void bitrev_kernel(uint32_t* __restrict__ dst,
                               const uint32_t* __restrict__ src, size_t n,
-                              int m) {
-  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t r = bit_reverse(i, m);
+                              size_t N, int m) {
+  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= N) return;
+  const size_t r = e - e % n + bit_reverse(e % n, m);
 #pragma unroll
-  for (int w = 0; w < W; ++w) dst[w * n + i] = src[w * n + r];
+  for (int w = 0; w < W; ++w) dst[w * N + e] = src[w * N + r];
 }
 
 // pairs (x0, x1) at stride s = 2^j with c the index inside the stride:
@@ -92,15 +97,16 @@ __global__ void bitrev_kernel(uint32_t* __restrict__ dst,
 template <int W>
 __global__ void unwind_kernel(uint32_t* __restrict__ S,
                               const uint32_t* __restrict__ sums,
-                              size_t sums_len, size_t off, size_t n, size_t s,
-                              int inverse, gf::Taps T) {
-  const size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n / 2) return;
+                              size_t sums_len, size_t off, size_t n, size_t N,
+                              size_t s, int inverse, gf::Taps T) {
+  const size_t q = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (q >= N / 2) return;
+  const size_t p = q % (n / 2);
   const size_t c = p % s;
-  const size_t i0 = (p / s) * 2 * s + c, i1 = i0 + s;
+  const size_t i0 = (q / (n / 2)) * n + (p / s) * 2 * s + c, i1 = i0 + s;
   uint32_t x0[W], x1[W], z[W], t[W];
-  gf::load<W>(x0, S, n, i0);
-  gf::load<W>(x1, S, n, i1);
+  gf::load<W>(x0, S, N, i0);
+  gf::load<W>(x1, S, N, i1);
   gf::load<W>(z, sums, sums_len, off + c);
   if (inverse) {
     gf::add<W>(x1, x1, x0);
@@ -111,15 +117,16 @@ __global__ void unwind_kernel(uint32_t* __restrict__ S,
     gf::add<W>(x0, x0, t);
     gf::add<W>(x1, x1, x0);
   }
-  gf::store<W>(S, n, i0, x0);
-  gf::store<W>(S, n, i1, x1);
+  gf::store<W>(S, N, i0, x0);
+  gf::store<W>(S, N, i1, x1);
 }
 
 template <int W>
 int launch(void* work, void* tmp, const void* tw, const void* sums, int m,
-           int inverse, const uint32_t* taps, void* stream, int* launches) {
+           long long R, int inverse, const uint32_t* taps, void* stream,
+           int* launches) {
   const gf::Taps T = gf::taps_from(taps);
-  const size_t n = (size_t)1 << m;
+  const size_t n = (size_t)1 << m, N = (size_t)R * n;
   const size_t tw_len = 2 * n - 2, sums_len = n - 1;
   auto S = (uint32_t*)work;
   auto D = (uint32_t*)tmp;
@@ -128,32 +135,34 @@ int launch(void* work, void* tmp, const void* tw, const void* sums, int m,
   auto st = (cudaStream_t)stream;
   int count = 0;
   auto twist = [&](uint32_t* X, int j) {
-    twist_kernel<W><<<blocks_for(n), kThreads, 0, st>>>(
-        X, TW, tw_len, 2 * n - 2 * (n >> j), n, j, T);
+    twist_kernel<W><<<blocks_for(N), kThreads, 0, st>>>(
+        X, TW, tw_len, 2 * n - 2 * (n >> j), n, N, j, T);
     ++count;
   };
   auto radix = [&](uint32_t* X, size_t s) {
-    radix_kernel<W><<<blocks_for(n / 4), kThreads, 0, st>>>(X, n, s, inverse);
+    radix_kernel<W><<<blocks_for(N / 4), kThreads, 0, st>>>(X, n, N, s,
+                                                           inverse);
     ++count;
   };
   auto unwind = [&](uint32_t* X, int j) {
-    unwind_kernel<W><<<blocks_for(n / 2), kThreads, 0, st>>>(
-        X, SU, sums_len, ((size_t)1 << j) - 1, n, (size_t)1 << j, inverse, T);
+    unwind_kernel<W><<<blocks_for(N / 2), kThreads, 0, st>>>(
+        X, SU, sums_len, ((size_t)1 << j) - 1, n, N, (size_t)1 << j, inverse,
+        T);
     ++count;
   };
-  if (m > 0) {
+  if (m > 0 && R > 0) {
     if (!inverse) {
       for (int j = 0; j < m; ++j) {
         twist(S, j);
         for (size_t s = n / 4; s >= ((size_t)1 << j) && s > 0; s >>= 1)
           radix(S, s);
       }
-      bitrev_kernel<W><<<blocks_for(n), kThreads, 0, st>>>(D, S, n, m);
+      bitrev_kernel<W><<<blocks_for(N), kThreads, 0, st>>>(D, S, n, N, m);
       ++count;
       for (int j = 0; j < m; ++j) unwind(D, j);
     } else {
       for (int j = m - 1; j >= 0; --j) unwind(S, j);
-      bitrev_kernel<W><<<blocks_for(n), kThreads, 0, st>>>(D, S, n, m);
+      bitrev_kernel<W><<<blocks_for(N), kThreads, 0, st>>>(D, S, n, N, m);
       ++count;
       for (int j = m - 1; j >= 0; --j) {
         for (size_t s = (size_t)1 << j; s <= n / 4; s <<= 1) radix(D, s);
@@ -167,13 +176,14 @@ int launch(void* work, void* tmp, const void* tw, const void* sums, int m,
 
 }  // namespace
 
-// work: (W, n) input, overwritten; tmp: (W, n) output; tw: (W, 2n - 2) flat
-// twist powers (the inverse powers when inverse); sums: (W, n - 1) flat
-// subset sums; launches: the number of kernels launched
+// work: (W, R, n) input, overwritten; tmp: (W, R, n) output; tw:
+// (W, 2n - 2) flat twist powers (the inverse powers when inverse); sums:
+// (W, n - 1) flat subset sums; launches: the number of kernels launched
 extern "C" int additive_fft_launch(void* work, void* tmp, const void* tw,
-                                   const void* sums, int m, int inverse,
-                                   int words, const uint32_t* taps,
-                                   void* stream, int* launches) {
-  GF_DISPATCH_WORDS(words, launch, work, tmp, tw, sums, m, inverse, taps,
+                                   const void* sums, int m, long long R,
+                                   int inverse, int words,
+                                   const uint32_t* taps, void* stream,
+                                   int* launches) {
+  GF_DISPATCH_WORDS(words, launch, work, tmp, tw, sums, m, R, inverse, taps,
                     stream, launches)
 }

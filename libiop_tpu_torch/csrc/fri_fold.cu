@@ -42,7 +42,10 @@ __global__ void fri_fold_kernel(uint32_t* __restrict__ out,
   for (int k = 0; k < C; ++k) fp::load<W>(vals[k], v, N, k * nc + j);
   uint32_t acc[W];
   fp::set_zero<W>(acc);
-#pragma unroll
+  // the loop over t stays rolled (its body indexes vals statically): fully
+  // unrolled, its c^2 inlined products kept ptxas busy for 27 s at W = 8,
+  // c = 8, most of the kernels' build
+#pragma unroll 1
   for (int t = 0; t < C; ++t) {
     uint32_t a[W];
     fp::set_zero<W>(a);

@@ -22,9 +22,18 @@
 // Bound on the H100: memory at the paths' shapes (each column reads 2R
 // elements of 8W bytes (R + 1 with scalar rows) against R wide products
 // and one reduction, about 225 integer instructions per 48 bytes at W = 6).
+//
+// GF(2^k) instantiation (W = 2, 4, 6, 8 words; the reference's XOR branch
+// of _row_sum, ligero.py:96-100, with its K16 products): the same one
+// thread per column.  Reduction modulo the pentanomial is linear over
+// GF(2), so the thread XORs the rows' unreduced 2W-word carry-less
+// products (gf::clmul of csrc/gf2k.cuh) and reduces once; no fold is ever
+// needed.  Integer-instruction bound: the Horner clmul costs about
+// 32 (4 W^2 + 2 W) instructions a product against 8W bytes of reads.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "gf2k.cuh"
 
 namespace {
 
@@ -78,6 +87,43 @@ int launch(void* out, const void* a, const void* b, long long R, long long N,
   return (int)cudaGetLastError();
 }
 
+template <int W>
+__global__ void row_dot_gf2_kernel(uint32_t* __restrict__ out,
+                                   const uint32_t* __restrict__ a,
+                                   const uint32_t* __restrict__ b, size_t R,
+                                   size_t N, size_t nb, gf::Taps T) {
+  const size_t j = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= N) return;
+  const size_t bj = nb == 1 ? 0 : j;
+  uint32_t acc[2 * W];
+#pragma unroll
+  for (int k = 0; k < 2 * W; ++k) acc[k] = 0;
+  for (size_t i = 0; i < R; ++i) {
+    uint32_t x[W], y[W], t[2 * W];
+    gf::load<W>(x, a, R * N, i * N + j);
+    gf::load<W>(y, b, R * nb, i * nb + bj);
+    gf::clmul<W>(t, x, y);
+#pragma unroll
+    for (int k = 0; k < 2 * W; ++k) acc[k] ^= t[k];
+  }
+  uint32_t res[W];
+  gf::reduce<W>(res, acc, T);
+  gf::store<W>(out, N, j, res);
+}
+
+template <int W>
+int launch_gf2(void* out, const void* a, const void* b, long long R,
+               long long N, long long nb, const uint32_t* taps,
+               void* stream) {
+  const int threads = 128;
+  if (N > 0)
+    row_dot_gf2_kernel<W><<<(unsigned)((N + threads - 1) / threads), threads,
+                            0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, (const uint32_t*)a, (const uint32_t*)b, (size_t)R,
+        (size_t)N, (size_t)nb, gf::taps_from(taps));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // a: (2W, R, N); b: (2W, R, nb) with nb = N or 1; r_mod_p: (2W, 1) limbs
@@ -89,4 +135,13 @@ extern "C" int row_dot_launch(void* out, const void* a, const void* b,
                               const uint32_t* field, void* stream) {
   FP_DISPATCH_WORDS(words, launch, out, a, b, R, N, nb, cap, r_mod_p, field,
                     stream)
+}
+
+// GF(2^k): a: (W, R, N) words; b: (W, R, nb); taps: the field's four
+// reduction taps; out: (W, N)
+extern "C" int row_dot_gf2_launch(void* out, const void* a, const void* b,
+                                  long long R, long long N, long long nb,
+                                  int words, const uint32_t* taps,
+                                  void* stream) {
+  GF_DISPATCH_WORDS(words, launch_gf2, out, a, b, R, N, nb, taps, stream)
 }

@@ -8,9 +8,10 @@ two packages compare limb for limb.  Values are in Montgomery form
 (x*R mod p, R = 2^(16L)) and always fully reduced (< p).
 
 On the card the product runs through kernel K1 (kernels/mont_mul.py),
-add/sub/neg through K5 (kernels/field_addsub.py) and the lazy-sum
-reductions through K6 (kernels/lazy_reduce.py); CPU tensors run their plain
-twins (fields/limbs.py).  Host-int methods mirror the reference exactly,
+add/sub/neg through K5 (kernels/field_addsub.py), the lazy-sum
+reductions through K6 (kernels/lazy_reduce.py) and the batched inverse
+through K20 (kernels/batch_inv.py); CPU tensors run their plain twins
+(fields/limbs.py).  Host-int methods mirror the reference exactly,
 including the ``rng.bytes`` draws of ``random_ints`` that example
 generation and transcripts depend on.
 """
@@ -22,6 +23,7 @@ import functools
 import numpy as np
 import torch
 
+from ..kernels.batch_inv import batch_inv
 from ..kernels.field_addsub import field_addsub
 from ..kernels.lazy_reduce import lazy_reduce
 from ..kernels.mont_mul import mont_mul
@@ -140,6 +142,9 @@ class PrimeField:
     def sub_ints(self, a: int, b: int) -> int:
         return (a - b) % self.p
 
+    def neg_int(self, a: int) -> int:
+        return (-a) % self.p
+
     def mul_ints(self, a: int, b: int) -> int:
         return a * b % self.p
 
@@ -231,8 +236,13 @@ class PrimeField:
         return acc
 
     def inv(self, a):
-        """Batched Fermat inversion a^(p-2); inv(0) = 0."""
-        return self.pow_static(a, self.p - 2)
+        """Batched inversion, a^(p-2) with inv(0) = 0 (kernel K20 on the
+        card: Montgomery's trick per block)."""
+        return batch_inv(self, a.contiguous())
+
+    def batch_inverse_and_mul(self, a, c):
+        """inv(a) * c elementwise, the product fused into K20."""
+        return batch_inv(self, a.contiguous(), c.contiguous())
 
     # ------------------------------------------------------------------
     # predicates / conversions

@@ -4,13 +4,16 @@
 (L, *batch) uint32 arrays (16-bit limbs of a prime field, L = 12 or 16, or
 32-bit words of a binary field, L = W) and the port's int32 tensors (same
 bits, same layout); ``r1cs_from_reference`` rebuilds a constraint system
-over a given field from the reference's ``R1CS.constraints`` int triples.
+over a given field from the reference's ``R1CS.constraints`` int triples;
+``fractal_index_from_reference`` turns the reference's Fractal prover index
+into the port's.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .bcs.common import DeviceLeafBlocks
 from .relations.r1cs import R1CS
 
 
@@ -33,3 +36,29 @@ def r1cs_from_reference(F, num_inputs: int, num_variables: int,
                           [(int(i), int(c)) for i, c in B],
                           [(int(i), int(c)) for i, c in C])
     return cs
+
+
+def _digest_heap(nodes) -> torch.Tensor:
+    """A BLAKE2b node list in heap layout (nodes[1] the root, nodes[n:] the
+    leaf digests) as the port's (2n, dw) heap of digest words."""
+    dw = len(nodes[1]) // 4
+    blob = b"\0" * (4 * dw) + b"".join(nodes[1:])
+    return limbs_from_numpy(np.frombuffer(blob, "<u4").reshape(-1, dw))
+
+
+def fractal_index_from_reference(F, artifact, device="cpu"):
+    """The port's Fractal prover index from the reference's
+    ``fractal_snark_indexer`` prover index (evaluations of the round-0
+    oracles, the K-vectors, and per round-0 tree its leaf blocks and node
+    digests; the device-built BLAKE2b trees' word rows), so the port proves
+    from an index the reference made."""
+    evals_map, vectors, mt_data = artifact
+    evals = {int(oid): limbs_from_numpy(np.asarray(ev), device)
+             for oid, ev in evals_map.items()}
+    vecs = [[limbs_from_numpy(np.asarray(v), device) for v in per_matrix]
+            for per_matrix in vectors]
+    trees = {tuple(key): (DeviceLeafBlocks(limbs_from_numpy(
+        np.asarray(blocks.words), device), blocks.block_len),
+        _digest_heap(nodes).to(device))
+        for key, (blocks, nodes) in mt_data.items()}
+    return evals, vecs, trees

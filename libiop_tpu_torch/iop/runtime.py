@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..algebra.domains import MultiplicativeCoset
-from ..kernels.fused_dag import Tape, TapeRecorder, fused_dag
+from ..kernels.fused_dag import DagLimitError, Tape, TapeRecorder, fused_dag
 from ..utils.profiling import PROFILER
 
 
@@ -59,6 +59,8 @@ class OracleRegistration:
     degree_bound: int
     round: int
     make_zk: bool = False
+    #: a holographic index oracle (round 0, committed once by the indexer)
+    is_index: bool = False
 
 
 @dataclasses.dataclass
@@ -131,6 +133,9 @@ class VirtualOracle:
 
 #: compiled tapes of fused DAGs, per DAG signature
 _TAPES: Dict[tuple, Tape] = {}
+#: how the runtime evaluated virtual-oracle DAGs: whole ("fused"), or
+#: split into its roots' constituents first ("split"), counted per call
+DAG_ROUTES = {"fused": 0, "split": 0}
 
 
 class IOPProtocol:
@@ -148,6 +153,7 @@ class IOPProtocol:
         self.round_params: Dict[int, RoundParameters] = {}
         self._current_round = 0
         self._last_was_verifier = False
+        self._has_index_round = False
         self._interactions_sealed = False
         self.qpos_regs: List[Tuple[str, object]] = []
         self.query_regs: List[Tuple[OracleHandle, QueryPositionHandle]] = []
@@ -178,10 +184,28 @@ class IOPProtocol:
             self._current_round += 1
             self._last_was_verifier = False
 
+    def _leave_index_round(self):
+        """Round 0 holds only the index: once it exists, the first prover
+        registration opens round 1."""
+        if self._has_index_round and self._current_round == 0:
+            self._current_round = 1
+
+    def register_index_oracle(self, domain_h: DomainHandle,
+                              degree_bound: int) -> OracleHandle:
+        """A holographic round-0 oracle; index oracles precede every other
+        registration."""
+        assert self._current_round == 0 and not self._last_was_verifier
+        assert all(r.is_index for r in self.oracle_regs)
+        self._has_index_round = True
+        self.oracle_regs.append(OracleRegistration(
+            domain_h, degree_bound, round=0, is_index=True))
+        return OracleHandle(len(self.oracle_regs) - 1)
+
     def register_oracle(self, domain_h: DomainHandle, degree_bound: int,
                         make_zk: bool = False) -> OracleHandle:
         """``make_zk`` oracles are committed in salted Merkle trees."""
         self._flip_to_prover()
+        self._leave_index_round()
         self.oracle_regs.append(OracleRegistration(
             domain_h, degree_bound, round=self._current_round,
             make_zk=make_zk))
@@ -196,6 +220,7 @@ class IOPProtocol:
 
     def register_prover_message(self, size: int) -> ProverMessageHandle:
         self._flip_to_prover()
+        self._leave_index_round()
         self.prover_msg_regs.append(
             ProverMessageRegistration(size, self._current_round))
         return ProverMessageHandle(len(self.prover_msg_regs) - 1)
@@ -321,8 +346,35 @@ class IOPProtocol:
         collects the uncached virtual nodes; real oracles and cached virtual
         ones are the tape's leaf inputs.  Their ``traced_contents`` compile
         into a tape, cached per DAG signature; challenges and tables enter
-        through ``traced_aux``.  The roots' results are cached."""
+        through ``traced_aux``.  The roots' results are cached.  A DAG that
+        exceeds K8's launch limits is split: its roots' virtual
+        constituents are evaluated first (each a DAG of its own, split in
+        turn), then the roots over them, or the roots one at a time.  A
+        single oracle over the limits with its constituents cached raises
+        DagLimitError."""
         roots = list(handles)
+        try:
+            return self._fused_evaluations(roots)
+        except DagLimitError as e:
+            limit = e
+        cache = self._virtual_evals_cache
+        pending = [h for h in roots if h.virtual and h.id not in cache]
+        children = list(dict.fromkeys(
+            c for h in pending for c in self.virtual_regs[h.id].constituents
+            if c.virtual and c.id not in cache))
+        parts = children or (pending if len(pending) > 1 else [])
+        if not parts:
+            oracle = self.virtual_regs[pending[0].id].oracle if pending \
+                else None
+            raise DagLimitError(f"virtual oracle {type(oracle).__name__} "
+                                f"alone exceeds K8's limits: {limit}")
+        DAG_ROUTES["split"] += 1
+        for h in parts:
+            self.get_fused_oracle_evaluations([h])
+        return self.get_fused_oracle_evaluations(roots)
+
+    def _fused_evaluations(self, roots: List[OracleHandle]
+                           ) -> List[torch.Tensor]:
         order: List[int] = []
         node_cons: List[List[tuple]] = []
         leaf_keys: List[tuple] = []
@@ -378,6 +430,7 @@ class IOPProtocol:
                 vals.append(oracle.traced_contents(b, aux_vals[k], cv))
             tape = _TAPES[sig] = b.finish(
                 [vals[j] for kind, j in root_keys if kind == "v"])
+        DAG_ROUTES["fused"] += 1
         inputs = leaves + [a.contiguous() for aux in auxes for a in aux
                            if not isinstance(a, int)]
         scalars = [a for aux in auxes for a in aux if isinstance(a, int)]

@@ -17,8 +17,8 @@ from . import (LAUNCHES, binary_words, build, check_limbs, ptr,
 from ..algebra.domains import bitrev_permutation
 from .gf2k_mul import gf2k_mul_plain
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + \
-    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_longlong] + \
+    [ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def twist_level(tw: torch.Tensor, n: int, j: int) -> torch.Tensor:
@@ -33,36 +33,41 @@ def sums_level(sums: torch.Tensor, j: int) -> torch.Tensor:
 def additive_fft_plain(F, S: torch.Tensor, tw: torch.Tensor,
                        sums: torch.Tensor, inverse: bool) -> torch.Tensor:
     """The reference's levels (subspace.py:172-211 forward, :220-255
-    inverse) on a (W, n) tensor with the flat tables."""
-    W, n = S.shape
+    inverse) on a (W, n) or (W, R, n) tensor (R transforms) with the flat
+    tables."""
+    shape = S.shape
+    W, n = shape[0], shape[-1]
+    S = S.reshape(W, -1, n)
+    R = S.shape[1]
     m = n.bit_length() - 1
     rev = torch.from_numpy(bitrev_permutation(n)).to(S.device)
 
     def twist(S, j):
         rows = n >> j
-        return gf2k_mul_plain(F, S.reshape(W, rows, 1 << j),
-                              twist_level(tw, n, j)[:, :, None]).reshape(W, n)
+        return gf2k_mul_plain(F, S.reshape(W, R, rows, 1 << j),
+                              twist_level(tw, n, j)[:, None, :, None]
+                              ).reshape(W, R, n)
 
     def radix(S, stride):
-        B = S.reshape(W, -1, 4, stride).clone()
+        B = S.reshape(W, R, -1, 4, stride).clone()
         if inverse:
-            B[:, :, 1] ^= B[:, :, 2]
-            B[:, :, 2] ^= B[:, :, 3]
+            B[:, :, :, 1] ^= B[:, :, :, 2]
+            B[:, :, :, 2] ^= B[:, :, :, 3]
         else:
-            B[:, :, 2] ^= B[:, :, 3]
-            B[:, :, 1] ^= B[:, :, 2]
-        return B.reshape(W, n)
+            B[:, :, :, 2] ^= B[:, :, :, 3]
+            B[:, :, :, 1] ^= B[:, :, :, 2]
+        return B.reshape(W, R, n)
 
     def unwind(S, j):
-        B = S.reshape(W, -1, 2, 1 << j)
-        z = sums_level(sums, j)[:, None, :]
+        B = S.reshape(W, R, -1, 2, 1 << j)
+        z = sums_level(sums, j)[:, None, None, :]
         if inverse:
-            hi = B[:, :, 1] ^ B[:, :, 0]
-            lo = B[:, :, 0] ^ gf2k_mul_plain(F, hi, z)
+            hi = B[:, :, :, 1] ^ B[:, :, :, 0]
+            lo = B[:, :, :, 0] ^ gf2k_mul_plain(F, hi, z)
         else:
-            lo = B[:, :, 0] ^ gf2k_mul_plain(F, B[:, :, 1], z)
-            hi = B[:, :, 1] ^ lo
-        return torch.stack([lo, hi], dim=2).reshape(W, n)
+            lo = B[:, :, :, 0] ^ gf2k_mul_plain(F, B[:, :, :, 1], z)
+            hi = B[:, :, :, 1] ^ lo
+        return torch.stack([lo, hi], dim=3).reshape(W, R, n)
 
     if not inverse:
         for j in range(m):
@@ -71,32 +76,34 @@ def additive_fft_plain(F, S: torch.Tensor, tw: torch.Tensor,
             while stride >= (1 << j) and stride > 0:
                 S = radix(S, stride)
                 stride >>= 1
-        S = S.index_select(1, rev)
+        S = S.index_select(2, rev)
         for j in range(m):
             S = unwind(S, j)
-        return S
+        return S.reshape(shape)
     for j in range(m - 1, -1, -1):
         S = unwind(S, j)
-    S = S.index_select(1, rev)
+    S = S.index_select(2, rev)
     for j in range(m - 1, -1, -1):
         stride = 1 << j
         while stride <= n // 4:
             S = radix(S, stride)
             stride <<= 1
         S = twist(S, j)
-    return S
+    return S.reshape(shape)
 
 
 def additive_fft(F, S: torch.Tensor, tw: torch.Tensor, sums: torch.Tensor,
                  inverse: bool = False) -> torch.Tensor:
     """Additive FFT (or IFFT) of the (W, n) words S, n = 2^m, natural order
-    in and out.  CUDA tensors launch K17 (one kernel a twist level, radix
-    stride, unwind level and the bit reversal); CPU tensors run the plain
-    twin."""
+    in and out, or of each of the R rows of (W, R, n) words over the same
+    domain.  CUDA tensors launch K17 (one kernel a twist level, radix
+    stride, unwind level and the bit reversal, whatever R); CPU tensors run
+    the plain twin."""
     for name, t in (("S", S), ("tw", tw), ("sums", sums)):
         check_limbs(f"additive_fft({name})", t, S.device)
-    W, n = S.shape
-    if W != F.W or n & (n - 1) or tuple(tw.shape) != (W, max(2 * n - 2, 0)) \
+    W, n = S.shape[0], S.shape[-1]
+    if S.ndim not in (2, 3) or W != F.W or n & (n - 1) \
+            or tuple(tw.shape) != (W, max(2 * n - 2, 0)) \
             or tuple(sums.shape) != (W, n - 1):
         raise ValueError(f"additive_fft: bad shapes S {tuple(S.shape)}, "
                          f"tw {tuple(tw.shape)}, sums {tuple(sums.shape)}")
@@ -108,8 +115,9 @@ def additive_fft(F, S: torch.Tensor, tw: torch.Tensor, sums: torch.Tensor,
     out = torch.empty_like(S)
     count = ctypes.c_int(0)
     fn = build.launcher("additive_fft", "additive_fft_launch", _ARGTYPES)
+    rows = S.shape[1] if S.ndim == 3 else 1
     err = fn(ptr(work), ptr(out), ptr(tw), ptr(sums), n.bit_length() - 1,
-             int(inverse), binary_words(F), F.kernel_params(),
+             rows, int(inverse), binary_words(F), F.kernel_params(),
              stream_ptr(S.device), ctypes.byref(count))
     raise_on_error("additive_fft", err)
     LAUNCHES["additive_fft"] += count.value

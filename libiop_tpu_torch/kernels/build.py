@@ -27,7 +27,8 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 SOURCES = ("mont_mul", "ntt", "blake2b", "fri_fold", "field_addsub",
            "lazy_reduce", "ell_matvec", "fused_dag", "poseidon", "horner",
            "powers", "vanishing", "place_columns", "rs_encode", "row_dot",
-           "gf2k_mul", "additive_fft", "linearized", "fri_fold_additive")
+           "gf2k_mul", "additive_fft", "linearized", "fri_fold_additive",
+           "batch_inv", "p_alpha_m")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

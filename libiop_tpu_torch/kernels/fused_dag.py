@@ -33,6 +33,10 @@ ADD, SUB, MUL, STORE = 0, 1, 2, 3
 REG, INPUT, SCALAR = 0, 1, 2
 
 
+class DagLimitError(ValueError):
+    """A DAG that does not fit the kernel's launch parameters."""
+
+
 class _DagParams(ctypes.Structure):
     _fields_ = [("inputs", ctypes.c_void_p * MAX_INPUTS),
                 ("outputs", ctypes.c_void_p * MAX_OUTPUTS),
@@ -125,7 +129,7 @@ class TapeRecorder:
                 if v.kind == REG and last[v.index] == k:
                     free.append(where.pop(v.index))
             if not free:
-                raise ValueError(f"fused DAG needs more than {MAX_REGS} "
+                raise DagLimitError(f"fused DAG needs more than {MAX_REGS} "
                                  "live values (the kernel's register file)")
             dst = free.pop()
             peak = max(peak, MAX_REGS - len(free))
@@ -138,7 +142,7 @@ class TapeRecorder:
             words.append(STORE | o << 2 | enc(r) << 8)
         if len(words) > MAX_OPS or self.n_inputs > MAX_INPUTS \
                 or self.n_scalars > MAX_SCALARS or len(roots) > MAX_OUTPUTS:
-            raise ValueError(
+            raise DagLimitError(
                 f"fused DAG exceeds the kernel's limits: {len(words)} ops "
                 f"(max {MAX_OPS}), {self.n_inputs} inputs (max {MAX_INPUTS}), "
                 f"{self.n_scalars} scalars (max {MAX_SCALARS}), {len(roots)} "

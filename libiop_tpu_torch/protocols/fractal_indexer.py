@@ -1,0 +1,103 @@
+"""Fractal's matrix indexer, the holographic preprocessing of A, B, C (port
+of libiop_tpu/protocols/fractal_indexer.py, multiplicative domains).
+
+Per matrix four index oracles over the index domain K (|K| >= nnz(M)),
+low-degree extended to the codeword domain: row, col (elements of the
+matrix domain H), val (the coefficient divided by the bivariate Lagrange
+derivative u_H(col, col) = Z'_H(col)) and row*col.  The entries are
+ordered by (row, col) as np.lexsort((cols, rows)) orders them, padded with
+(H's first element, H's first element, 0, its square) up to |K|, and then
+row and col are swapped (the protocol works with M' where
+M'_ij = M_ji u_H(j, j)).  The K-vectors are host code over numpy object
+arrays of canonical ints, computed once per matrix (the reference computes
+them twice); their LDEs are one IFFT and one FFT each on the device.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import numpy as np
+import torch
+
+from ..algebra.generic import (batch_inv_ints, fft_any, ifft_any,
+                               vanishing_derivative_list)
+from ..iop.runtime import IOPProtocol, OracleHandle
+
+
+def _elements_ints(H) -> np.ndarray:
+    """The coset's elements in index order as an object array of canonical
+    ints, one product an element."""
+    out = np.empty(H.order, dtype=object)
+    p, x = H.field.p, H.shift
+    for i in range(H.order):
+        out[i] = x
+        x = x * H.g % p
+    return out
+
+
+class MatrixIndexer:
+    def __init__(self, iop: IOPProtocol, index_handle, matrix_handle,
+                 codeword_handle, input_variable_dim: int, matrix):
+        self.iop = iop
+        self.F = iop.F
+        self.index_handle = index_handle
+        self.K = iop.get_domain(index_handle)
+        self.H = iop.get_domain(matrix_handle)
+        self.L = iop.get_domain(codeword_handle)
+        self.codeword_handle = codeword_handle
+        self.input_variable_dim = input_variable_dim
+        self.matrix = matrix
+        assert self.K.order >= max(1, len(matrix.rows))
+
+    def register_oracles(self):
+        bound = self.K.order
+        self.row_handle = self.iop.register_index_oracle(
+            self.codeword_handle, bound)
+        self.col_handle = self.iop.register_index_oracle(
+            self.codeword_handle, bound)
+        self.val_handle = self.iop.register_index_oracle(
+            self.codeword_handle, bound)
+        self.row_times_col_handle = self.iop.register_index_oracle(
+            self.codeword_handle, bound)
+
+    def get_all_oracle_handles(self) -> List[OracleHandle]:
+        return [self.row_handle, self.col_handle, self.val_handle,
+                self.row_times_col_handle]
+
+    def compute_oracles_over_K(self) -> List[np.ndarray]:
+        """The four |K|-vectors (row, col, val, row*col) as object arrays of
+        canonical ints, after the row <-> col swap."""
+        F, H, M = self.F, self.H, self.matrix
+        order = np.lexsort((M.cols, M.rows))
+        rows, cols = M.rows[order], M.cols[order]
+        coeffs = F.to_ints(torch.from_numpy(
+            np.ascontiguousarray(M.vals[:, order])))
+        elems = _elements_ints(H)
+        reindex = np.array([H.reindex_by_subgroup(self.input_variable_dim, v)
+                            for v in range(H.order)], dtype=np.int64)
+        col_index = reindex[cols]
+        deriv_inv = np.array(batch_inv_ints(F, vanishing_derivative_list(H)),
+                             dtype=object)
+        row_elems, col_elems = elems[rows], elems[col_index]
+        nnz, k = len(order), self.K.order
+        row_evals = np.empty(k, dtype=object)
+        col_evals = np.empty(k, dtype=object)
+        val_evals = np.zeros(k, dtype=object)
+        rc_evals = np.empty(k, dtype=object)
+        pad = elems[0]
+        row_evals[:] = pad
+        col_evals[:] = pad
+        rc_evals[:] = F.mul_ints(pad, pad)
+        row_evals[:nnz] = row_elems
+        col_evals[:nnz] = col_elems
+        val_evals[:nnz] = coeffs * deriv_inv[col_index] % F.p
+        rc_evals[:nnz] = row_elems * col_elems % F.p
+        # transpose: swap row and col (val is already indexed for M')
+        return [col_evals, row_evals, val_evals, rc_evals]
+
+    def submit_oracles(self, vectors: List[torch.Tensor]):
+        """LDE each K-vector (device tensors) to the codeword domain and
+        submit it."""
+        for vec, handle in zip(vectors, self.get_all_oracle_handles()):
+            self.iop.submit_oracle(handle, fft_any(ifft_any(vec, self.K),
+                                                   self.L))

@@ -1,5 +1,6 @@
 """Ligero: the interleaved Reed-Solomon R1CS protocol (port of
-libiop_tpu/protocols/ligero.py, multiplicative domains).
+libiop_tpu/protocols/ligero.py, multiplicative cosets and affine
+subspaces).
 
 * The witness z (width-padded) is packed into a matrix of rows of length
   |H| (the systematic domain); each row is RS-encoded over the codeword
@@ -15,9 +16,10 @@ libiop_tpu/protocols/ligero.py, multiplicative domains).
 
 On the card every row encode (systematic domain to codeword domain, and
 the zk row blinding oracle's extended domain to codeword domain) is one
-launch of kernel K14 (kernels/rs_encode.py), and every sum over rows of a
-product is one launch of kernel K15 (kernels/row_dot.py), which never
-writes the (rows, N) product.
+launch of kernel K14 (kernels/rs_encode.py) over a prime field, and one
+batched additive IFFT and FFT (kernel K17) over a binary field; every sum
+over rows of a product is one launch of kernel K15 (kernels/row_dot.py,
+an XOR sum over GF(2^k)), which never writes the (rows, N) product.
 """
 from __future__ import annotations
 
@@ -66,14 +68,20 @@ class EncodedLigeroParams:
 
 
 def _encode_rows(F, rows_mat, systematic_domain, codeword_domain):
-    """(L, R, |H|) systematic values -> (L, R, |L|) codewords (K14)."""
+    """(L, R, |H|) systematic values -> (L, R, |L|) codewords: K14 over a
+    multiplicative coset; over an affine subspace the reference's ifft_any
+    then fft_any (ligero.py:86-89), each one batched K17 transform."""
+    if F.kind == "additive":
+        return fft_any(ifft_any(rows_mat.contiguous(), systematic_domain),
+                       codeword_domain)
     return rs_encode(F, rows_mat.contiguous(), systematic_domain,
                      codeword_domain)
 
 
 def _row_sum(F, a, b):
     """sum_i a[:, i, :] * b[:, i, :] over the row axis of (L, R, N)
-    tensors (K15: the products are never written)."""
+    tensors (K15: the products are never written; an XOR fold over
+    GF(2^k), ligero.py:92-101)."""
     return row_dot(F, a.contiguous(), b.contiguous())
 
 
@@ -246,7 +254,7 @@ class InterleavedLincheckET:
     """Interleaved lincheck with an explicit public target vector b: the
     message encoded by the row oracles satisfies M x = b ([ACIV17] 4.2).
     Tested, but not on the main Ligero path (which routes targets through
-    oracles, the OT variant).  Multiplicative domains only.
+    oracles, the OT variant).  Both domain families.
 
     Per interaction the verifier sends r (one entry per matrix row); the
     prover answers with the low coefficients of q = sum_i s_i U_i

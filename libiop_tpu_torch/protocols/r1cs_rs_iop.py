@@ -1,6 +1,7 @@
-"""The RS-encoded Aurora protocol (port of the non-holographic branch of
+"""The RS-encoded Aurora protocol (port of
 libiop_tpu/protocols/r1cs_rs_iop.py): witness oracles fw/fAz/fBz/fCz, the
-fz and rowcheck virtual oracles, and dispatch into multi-lincheck.
+fz and rowcheck virtual oracles, and dispatch into the multi-lincheck, or
+into Fractal's holographic multi-lincheck over indexed matrices.
 
 fz = fw * Z_input + f_{1,v}, with f_{1,v} interpolating (1, primary) over
 the input-variable domain; rowcheck = (fAz*fBz - fCz) / Z_constraint.
@@ -21,6 +22,8 @@ from ..algebra.generic import (divide_by_vanishing_any, fft_any, ifft_any,
                                vanishing_evals_over_any,
                                vanishing_inverse_evals_over_any)
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
+from .holographic_lincheck import (HolographicLincheckParams,
+                                  HolographicMultiLincheck)
 from .lincheck import LincheckParams, MultiLincheck
 
 
@@ -91,28 +94,46 @@ class RowcheckOracle(VirtualOracle):
 class EncodedAuroraParams:
     def __init__(self, F, interactive_security_bits: int,
                  codeword_domain_dim: int, constraint_domain_dim: int,
-                 summation_domain_dim: int, query_bound: int, make_zk: bool):
+                 summation_domain_dim: int, query_bound: int, make_zk: bool,
+                 holographic: bool = False, index_domain_dim: int = 0):
         self.F = F
         self.codeword_domain_dim = codeword_domain_dim
         self.constraint_domain_dim = constraint_domain_dim
         self.summation_domain_dim = summation_domain_dim
         self.query_bound = query_bound if make_zk else 0
         self.make_zk = make_zk
-        self.lincheck_params = LincheckParams(
-            F, interactive_security_bits, constraint_domain_dim, make_zk)
+        self.holographic = holographic
+        self.index_domain_dim = index_domain_dim
+        if holographic:
+            self.holographic_lincheck_params = HolographicLincheckParams(
+                F, interactive_security_bits, constraint_domain_dim, make_zk)
+        else:
+            self.lincheck_params = LincheckParams(
+                F, interactive_security_bits, constraint_domain_dim, make_zk)
 
     def max_tested_degree_bound(self) -> int:
-        """r1cs_rs_iop.tcc:56-77."""
-        if not self.make_zk:
-            return 1 << self.summation_domain_dim
+        """r1cs_rs_iop.tcc:56-77; the holographic bound is the reference
+        package's: 3|K| over the index domain, with the zk query bound."""
         b = self.query_bound
-        lincheck = 2 * (1 << self.summation_domain_dim) + b - 1
+        if self.holographic:
+            lincheck = max(
+                3 * (1 << max(self.index_domain_dim,
+                              self.constraint_domain_dim)),
+                2 * (1 << self.summation_domain_dim) + b - 1)
+        elif not self.make_zk:
+            return 1 << self.summation_domain_dim
+        else:
+            lincheck = 2 * (1 << self.summation_domain_dim) + b - 1
         rowcheck = (1 << self.constraint_domain_dim) + 2 * b - 1
         return max(lincheck, rowcheck)
 
     def max_constraint_degree_bound(self) -> int:
         b = self.query_bound
-        lincheck = 2 * (1 << self.summation_domain_dim) + b - 1
+        if self.holographic:
+            lincheck = 4 * (1 << max(self.index_domain_dim,
+                                     self.constraint_domain_dim))
+        else:
+            lincheck = 2 * (1 << self.summation_domain_dim) + b - 1
         rowcheck = 2 * (1 << self.constraint_domain_dim) + 2 * b - 1
         return max(lincheck, rowcheck)
 
@@ -153,11 +174,17 @@ class EncodedAurora:
         self.fz_handle = iop.register_virtual_oracle(
             codeword_handle, self.fw_degree + k + 1, [self.fw_handle],
             self.fz_oracle)
-        self.multi_lincheck = MultiLincheck(
-            iop, codeword_handle, constraint_handle, variable_handle,
-            self.input_domain.dim, list(r1cs.matrices()), self.fz_handle,
-            [self.fAz_handle, self.fBz_handle, self.fCz_handle],
-            params.lincheck_params, rng=self.rng)
+        Mz_handles = [self.fAz_handle, self.fBz_handle, self.fCz_handle]
+        if params.holographic:
+            self.multi_lincheck = HolographicMultiLincheck(
+                iop, codeword_handle, constraint_handle,
+                self.input_domain.dim, list(r1cs.matrices()), self.fz_handle,
+                Mz_handles, params.holographic_lincheck_params, rng=self.rng)
+        else:
+            self.multi_lincheck = MultiLincheck(
+                iop, codeword_handle, constraint_handle, variable_handle,
+                self.input_domain.dim, list(r1cs.matrices()), self.fz_handle,
+                Mz_handles, params.lincheck_params, rng=self.rng)
         self.rowcheck_oracle = RowcheckOracle(F, self.L, self.constraint_domain)
         self.rowcheck_handle = iop.register_virtual_oracle(
             codeword_handle, m + 2 * b - 1,
@@ -167,11 +194,27 @@ class EncodedAurora:
             [self.variable_domain.reindex_by_subgroup(self.input_domain.dim, j)
              for j in range(n)], dtype=np.int64)
 
+    def set_index_oracles(self, index_handle, indexed_handles):
+        assert self.params.holographic
+        self.multi_lincheck.set_index_oracles(index_handle, indexed_handles)
+
+    def set_index_vectors_over_K(self, vectors_per_matrix):
+        assert self.params.holographic
+        self.multi_lincheck.set_index_vectors_over_K(vectors_per_matrix)
+
     def register_challenge(self):
-        self.multi_lincheck.register_challenge()
+        if self.params.holographic:
+            self.multi_lincheck.register_challenge_alpha()
+        else:
+            self.multi_lincheck.register_challenge()
 
     def register_proof(self):
-        self.multi_lincheck.register_proof()
+        if self.params.holographic:
+            self.multi_lincheck.register_response_alpha()
+            self.multi_lincheck.register_challenge_beta()
+            self.multi_lincheck.register_response_beta()
+        else:
+            self.multi_lincheck.register_proof()
 
     def _encode(self, primary: List[int], auxiliary: List[int], masks):
         """The four witness codewords (the reference's ``_encode_fn`` as
@@ -227,7 +270,12 @@ class EncodedAurora:
         self.iop.submit_oracle(self.fCz_handle, cz_cw)
 
     def calculate_and_submit_proof(self):
-        self.multi_lincheck.calculate_and_submit_proof()
+        if self.params.holographic:
+            self.multi_lincheck.calculate_response_alpha()
+            self.iop.signal_prover_round_done()
+            self.multi_lincheck.calculate_response_beta()
+        else:
+            self.multi_lincheck.calculate_and_submit_proof()
 
     def construct_verifier_state(self, primary: List[int]):
         self.fz_oracle.set_primary_input(primary)

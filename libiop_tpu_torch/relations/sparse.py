@@ -56,6 +56,11 @@ class SparseMatrix:
                 np.ascontiguousarray(compute())).to(device)
         return t
 
+    def _vals_pad(self, device):
+        """The values with the zero column padding slots point at."""
+        return self._dev("vals_pad", device, lambda: np.concatenate(
+            [self.vals, np.zeros((self.F.L, 1), np.int32)], axis=1))
+
     @staticmethod
     def _ell_plan(seg_ids: np.ndarray, src_ids: np.ndarray, num_segments: int):
         """(entry_idx (S*K,), src_flat (S*K,), K) with sentinel entries at an
@@ -86,8 +91,7 @@ class SparseMatrix:
             plan = self._plans[tag]
         if plan is not None:
             entry_idx, src_flat, K = plan
-            vals_pad = self._dev("vals_pad", dev, lambda: np.concatenate(
-                [self.vals, np.zeros((F.L, 1), np.int32)], axis=1))
+            vals_pad = self._vals_pad(dev)
             e_dev = self._dev(tag + "_entry", dev, lambda: entry_idx)
             s_dev = self._dev(tag + "_src", dev, lambda: src_flat)
             if F.kind == "additive":
@@ -107,6 +111,24 @@ class SparseMatrix:
         """M @ z for z (L, num_cols) Montgomery -> (L, num_rows)."""
         return self._apply("mv", self.rows, self.cols, self.num_rows, z,
                            force_segsum)
+
+    def transpose_csr_device(self, device):
+        """M^T in CSR form on the device, (vals, offsets, src, kmax): column
+        j's nonzeros are vals[:, offsets[j]:offsets[j + 1]] in row order,
+        src their rows, kmax the densest column's count.  No padding, so
+        every column distribution takes nnz slots (kernel K21 reads it)."""
+        if "csrT" not in self._plans:
+            counts = np.bincount(self.cols, minlength=self.num_cols)
+            offsets = np.zeros(self.num_cols + 1, np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            order = np.argsort(self.cols, kind="stable")
+            self._plans["csrT"] = (self.vals[:, order], offsets,
+                                   self.rows[order],
+                                   int(counts.max(initial=0)))
+        vals, offsets, src, kmax = self._plans["csrT"]
+        return (self._dev("csrT_vals", device, lambda: vals),
+                self._dev("csrT_offsets", device, lambda: offsets),
+                self._dev("csrT_src", device, lambda: src), kmax)
 
     def matvec_transpose(self, y, force_segsum: bool = False):
         """M^T @ y for y (L, num_rows) -> (L, num_cols)."""

@@ -21,6 +21,7 @@ from libiop_tpu_torch.relations.examples import generate_r1cs_example
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 #: tests/test_additive_aurora.py:78 (the JAX package's pin)
 ADDITIVE_GOLDEN_SHA256 = \

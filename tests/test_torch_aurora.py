@@ -17,6 +17,7 @@ from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
 from test_golden_transcript import GOLDEN_SHA256
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _golden_setup():

@@ -25,6 +25,7 @@ from libiop_tpu_torch.algebra.linearized import divide_by_linearized
 from libiop_tpu_torch.fields import binary
 from libiop_tpu_torch.interop import limbs_from_numpy, limbs_to_numpy
 from libiop_tpu_torch.protocols import fri
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = ("gf64", "gf128", "gf192", "gf256")
 

@@ -24,6 +24,7 @@ from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.interop import limbs_from_numpy
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows, digest_rows_to_bytes,
                                               merkle_heap)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _rows(rng, n, msg_bytes):

@@ -14,6 +14,7 @@ from libiop_tpu_torch.interop import r1cs_from_reference
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _CONFIG = dict(security_parameter=32, RS_extra_dimensions=2,
                fri_localization_parameter=2, make_zk=False, pow_bits=4)

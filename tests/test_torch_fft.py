@@ -18,6 +18,7 @@ from libiop_tpu_torch.algebra import fft
 from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.interop import limbs_from_numpy, limbs_to_numpy
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 Fj = jax_edwards_fr()
 Ft = edwards_fr()

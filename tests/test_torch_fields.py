@@ -4,8 +4,8 @@ alt_bn128_Fr (16 limbs).
 The same canonical integers (numpy rng, plus 0, 1 and p-1) go through the
 JAX package's PrimeField and the port's on the CPU; limbs must be equal
 (tolerance 0: the arithmetic is exact).  The port's ops are checked to go
-through the kernel wrappers (K1 mul, K5 add/sub/neg, K6 reductions), whose
-plain twins are what the CPU runs."""
+through the kernel wrappers (K1 mul, K5 add/sub/neg, K6 reductions, K20
+inverse), whose plain twins are what the CPU runs."""
 import numpy as np
 import pytest
 import torch
@@ -16,6 +16,7 @@ from libiop_tpu.fields.prime import alt_bn128_fr as jax_alt_bn128_fr
 from libiop_tpu.fields.prime import edwards_fr as jax_edwards_fr
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.interop import limbs_from_numpy, limbs_to_numpy
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = {"edwards_Fr": (jax_edwards_fr, edwards_fr),
           "alt_bn128_Fr": (jax_alt_bn128_fr, alt_bn128_fr)}
@@ -26,7 +27,7 @@ def fields(request):
     """(the JAX package's field, the port's) for each field."""
     return tuple(f() for f in FIELDS[request.param])
 
-_WRAPPER = {"mul": "mont_mul", "square": "mont_mul", "inv": "mont_mul",
+_WRAPPER = {"mul": "mont_mul", "square": "mont_mul", "inv": "batch_inv",
             "add": "field_addsub", "sub": "field_addsub",
             "neg": "field_addsub"}
 
@@ -35,7 +36,7 @@ _WRAPPER = {"mul": "mont_mul", "square": "mont_mul", "inv": "mont_mul",
 def wrapper_calls(monkeypatch):
     """Counts the calls PrimeField makes into each kernel wrapper."""
     calls = {}
-    for name in ("mont_mul", "field_addsub", "lazy_reduce"):
+    for name in ("mont_mul", "field_addsub", "lazy_reduce", "batch_inv"):
         fn = getattr(port_prime, name)
 
         def spy(*args, _fn=fn, _name=name, **kw):

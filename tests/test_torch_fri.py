@@ -15,6 +15,7 @@ from libiop_tpu_torch.algebra.domains import MultiplicativeCoset
 from libiop_tpu_torch.fields.prime import edwards_fr
 from libiop_tpu_torch.interop import limbs_to_numpy
 from libiop_tpu_torch.protocols import fri
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 #: sha256 of the reference's fold (little-endian uint32 limbs) per eta;

@@ -20,6 +20,7 @@ from libiop_tpu_torch.protocols.lincheck import MultiLincheckVirtualOracle
 from libiop_tpu_torch.protocols.r1cs_rs_iop import FzOracle, RowcheckOracle
 from libiop_tpu_torch.protocols.sumcheck import SumcheckGOracle
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 F = edwards_fr()
 H = make_domain(F, 4)                      # constraint = variable = summation

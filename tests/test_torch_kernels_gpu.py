@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card, at shapes and broadcast patterns the main paths use, over edwards_Fr
 (6-word instantiations) and alt_bn128_Fr (8-word), and the binary-field
-kernels over gf64, gf128, gf192 and gf256.  Marked gpu: each test
+kernels (and K15's and K17's binary routes) over gf64, gf128, gf192 and
+gf256.  Marked gpu: each test
 skips without a CUDA device.  Imports nothing of JAX, so it also runs
 on a machine without it:
 
@@ -18,6 +19,7 @@ from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.kernels import LAUNCHES
 from libiop_tpu_torch.kernels.blake2b import blake2b_rows, blake2b_rows_plain
+from libiop_tpu_torch.kernels.batch_inv import batch_inv, batch_inv_plain
 from libiop_tpu_torch.kernels.ell_matvec import ell_matvec, ell_matvec_plain
 from libiop_tpu_torch.kernels.field_addsub import (field_addsub,
                                                    field_addsub_plain)
@@ -31,6 +33,8 @@ from libiop_tpu_torch.kernels.horner import horner, horner_plain
 from libiop_tpu_torch.kernels.poseidon import (poseidon_hash_columns,
                                                poseidon_merkle_heap,
                                                poseidon_sponge_plain)
+from libiop_tpu_torch.kernels.p_alpha_m import (group_size, p_alpha_m,
+                                                p_alpha_m_plain)
 from libiop_tpu_torch.kernels.place_columns import (place_columns,
                                                     place_columns_plain)
 from libiop_tpu_torch.kernels.powers import powers, powers_plain
@@ -42,6 +46,7 @@ from libiop_tpu_torch.kernels.vanishing import (vanishing_divide,
                                                 vanishing_multiply_plain)
 from libiop_tpu_torch.protocols.fri import _fold_rows
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
+from libiop_tpu_torch.relations.sparse import SparseMatrix
 from libiop_tpu_torch.algebra import subspace
 from libiop_tpu_torch.fields import binary
 from libiop_tpu_torch.kernels.additive_fft import (additive_fft,
@@ -504,3 +509,107 @@ def test_fused_dag_binary_matches_twin(dev):
         assert LAUNCHES["fused_dag"] == before + 1
         want = fused_dag_plain(Fb, tape, inputs, scalars)
         assert all(torch.equal(g, w) for g, w in zip(got, want)), name
+
+
+def test_batch_inv_matches_twin(dev, field):
+    """K20 with and without a numerator, zeros included, across block
+    boundaries (2048 elements a block) and a partial last block."""
+    F = field
+    for n in (1, 5, 2048, 2049, 70001):
+        rng = np.random.default_rng(n)
+        ints = F.random_ints(n, rng)
+        for z in range(0, n, 7):
+            ints[z] = 0
+        a = F.from_ints(ints, dev)
+        c = _elems((n,), n + 1, dev, F)
+        before = LAUNCHES["batch_inv"]
+        got = batch_inv(F, a)
+        torch.cuda.synchronize()
+        assert LAUNCHES["batch_inv"] == before + 1
+        assert torch.equal(got, batch_inv_plain(F, a, None)), n
+        assert torch.equal(batch_inv(F, a, c), batch_inv_plain(F, a, c)), n
+        if n < 100:
+            assert list(F.to_ints(got)) == [pow(x, F.p - 2, F.p)
+                                            for x in ints]
+
+
+def test_p_alpha_m_matches_twin(dev, field):
+    """K21 on the three matrices of an example at 2^12 (M^T in CSR form),
+    a permuted placement with sentinel slots."""
+    F = field
+    n = 1 << 12
+    cs, _, _ = generate_r1cs_example(F, n, 15, n - 1,
+                                     np.random.default_rng(0))
+    mats = list(cs.matrices())
+    plans = [M.transpose_csr_device(dev) for M in mats]
+    S = mats[0].num_cols
+    inv = torch.from_numpy(np.random.default_rng(3).permutation(S + 64))
+    inv = torch.where(inv >= S, torch.full_like(inv, S), inv).to(dev)
+    p = _elems((n,), 4, dev, F)
+    r = F.random_ints(3, np.random.default_rng(5))
+    before = LAUNCHES["p_alpha_m"]
+    got = p_alpha_m(F, plans, p, r, inv, S)
+    torch.cuda.synchronize()
+    assert LAUNCHES["p_alpha_m"] == before + 1
+    assert torch.equal(got, p_alpha_m_plain(F, plans, p, r, inv, S))
+
+
+def test_p_alpha_m_dense_column_matches_twin(dev, field):
+    """K21 where one column holds a nonzero in every row (a constant
+    column, as real circuits have) beside sparse ones: 32 lanes a slot."""
+    F = field
+    n, S = 1 << 12, 1 << 10
+    rng = np.random.default_rng(11)
+    rows = np.concatenate([np.arange(n), rng.integers(0, n, 3 * n)])
+    cols = np.concatenate([np.zeros(n, np.int64),
+                           rng.integers(1, S, 3 * n)])
+    mats = [SparseMatrix(F, n, S, rows, cols,
+                         F.from_ints_np(F.random_ints(len(rows), rng)))
+            for _ in range(2)]
+    plans = [M.transpose_csr_device(dev) for M in mats]
+    assert plans[0][3] == n and group_size(plans) == 32
+    assert all(plan[2].numel() == len(rows) for plan in plans)
+    inv = torch.arange(S, dtype=torch.int64).flip(0).to(dev)
+    p = _elems((n,), 12, dev, F)
+    r = F.random_ints(2, rng)
+    got = p_alpha_m(F, plans, p, r, inv, S)
+    assert torch.equal(got, p_alpha_m_plain(F, plans, p, r, inv, S))
+
+
+def test_row_dot_binary_matches_twin(dev):
+    """K15's GF(2^k) instantiation over every binary width, a full b and
+    one scalar a row, R = 1, 7 and 300 rows."""
+    for name in BINARY:
+        Fb = getattr(binary, name)()
+        for R in (1, 7, 300):
+            a = _gf_elems(Fb, (R, 999), R, dev)
+            for nb in (999, 1):
+                b = _gf_elems(Fb, (R, nb), R + nb, dev)
+                before = LAUNCHES["row_dot"]
+                got = row_dot(Fb, a, b)
+                torch.cuda.synchronize()
+                assert LAUNCHES["row_dot"] == before + 1
+                assert torch.equal(got, row_dot_plain(Fb, a, b)), (name, R, nb)
+
+
+def test_additive_fft_batched_matches_twin(dev):
+    """K17 over a batch of rows: one launch a level for all rows, equal to
+    the twin and to the one-row transforms, forward and inverse."""
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        D = subspace.AffineSubspace(Fb, 10, shift=1 << 20)
+        x = _gf_elems(Fb, (5, D.order), 11, dev)
+        for inverse in (False, True):
+            tw, sums = subspace.fft_tables(D, dev, inverse)
+            one = additive_fft(Fb, x[:, 0].contiguous(), tw, sums, inverse)
+            before = LAUNCHES["additive_fft"]
+            got = additive_fft(Fb, x, tw, sums, inverse)
+            torch.cuda.synchronize()
+            per_transform = LAUNCHES["additive_fft"] - before
+            assert torch.equal(got[:, 0], one), (name, inverse)
+            assert torch.equal(got, additive_fft_plain(Fb, x, tw, sums,
+                                                       inverse))
+            rows = [additive_fft(Fb, x[:, r].contiguous(), tw, sums, inverse)
+                    for r in range(5)]
+            assert torch.equal(got, torch.stack(rows, dim=1))
+            assert LAUNCHES["additive_fft"] - before == 6 * per_transform

@@ -26,6 +26,7 @@ from libiop_tpu_torch.relations.sparse import SparseMatrix
 from libiop_tpu_torch.snark.ligero import (LigeroSnarkParams,
                                            ligero_snark_prover,
                                            ligero_snark_verifier)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 #: sha256 of the JAX package's Ligero proofs in the configuration below
 PINS = {False: "c4bf652076e40e8813bb563eb3d678b2becee3ff4c927807666a11d39b95a3fc",

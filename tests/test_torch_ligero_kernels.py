@@ -36,6 +36,7 @@ from libiop_tpu_torch.kernels.row_dot import accumulator_cap, row_dot
 from libiop_tpu_torch.kernels.rs_encode import rs_encode
 from libiop_tpu_torch.protocols import ligero as tlig
 from libiop_tpu_torch.protocols.common import lazy_linear_combination
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FIELDS = {"edwards_Fr": (jax_edwards_fr, edwards_fr),
           "alt_bn128_Fr": (jax_alt_bn128_fr, alt_bn128_fr)}

@@ -23,6 +23,7 @@ from libiop_tpu_torch.bcs.poseidon import (AlgebraicSponge, BatchedPoseidon,
                                            salts_to_elements)
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.kernels.poseidon import poseidon_merkle_heap
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _PERM_EXPECTED = 11513774210489128719203754000419293109474869123660673521809718785157314013443
 _HIGH_ALPHA_EXPECTED = 19745903574422741006139475519330790957027605504238596103618584028691101830733
@@ -31,18 +32,6 @@ _SALT_ELEM_EXPECTED = 2951563058990412824524859265607882624010480421590888340174
 FIELDS = {"alt_bn128_Fr": (alt_bn128_fr, jax_alt_bn128_fr),
           "edwards_Fr": (edwards_fr, jax_edwards_fr)}
 VARIANTS = ["poseidon", "poseidon_high_alpha"]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """K9's twin works on tiny tensors, where torch's intra-op threads cost
-    more than they save (on an 8-core CPU a Poseidon proof takes a fifth
-    longer with eight threads than with one, more when test workers share
-    the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("field", sorted(FIELDS))

@@ -14,7 +14,6 @@ import secrets
 
 import numpy as np
 import pytest
-import torch
 
 from libiop_tpu_torch.bcs.common import BCSTranscript
 from libiop_tpu_torch.fields.prime import alt_bn128_fr
@@ -22,6 +21,7 @@ from libiop_tpu_torch.relations.examples import generate_r1cs_example
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 #: case -> (hash_name, make_zk, sha256 of the JAX package's proof bytes)
 PINS = {
@@ -33,18 +33,6 @@ PINS = {
     "poseidon_zk": ("poseidon", True,
                     "50ebc919c82250acc2c1d3183d0bcdc48d4eae4b02410956d9e42011816c12ae"),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """K9's twin works on tiny tensors, where torch's intra-op threads cost
-    more than they save (on an 8-core CPU a Poseidon proof takes a fifth
-    longer with eight threads than with one, more when test workers share
-    the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _config(hash_name, make_zk):

@@ -14,6 +14,7 @@ from libiop_tpu_torch.interop import (limbs_from_numpy, limbs_to_numpy,
                                       r1cs_from_reference)
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
 from libiop_tpu_torch.relations.variable import Variable
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 Fj, Ft = jax_edwards_fr(), edwards_fr()
 

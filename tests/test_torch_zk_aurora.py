@@ -18,6 +18,7 @@ from libiop_tpu_torch.relations.examples import generate_r1cs_example
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
                                            aurora_snark_verifier)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 GOLDEN_ZK_SHA256 = \
     "02e9bb70ba8ffbde03f75e379618274cdd4565c4256bb52ea9d1bd3b70e70f55"
