@@ -54,7 +54,16 @@ Phases (any failure exits non-zero and prints no result line):
     on the largest calls the Fractal paths made (K20 also on that input
     with zeros written in), and K15's GF(2^k) instantiation and K17's
     batched transform on the largest calls the GF(2^64) Ligero path made;
-13. print the card's name and power limit, the kernels JSON line, then the
+13. Fractal over GF(2^192) at 2^log_n constraints (bench.py's Fractal
+    configuration with FRI localization 1, as its aurora_gf192 stage):
+    indexer (timed apart), prove and verify, non-zk then zk, the same
+    checks; K8 on the zk DAG; then the GF(2^k) instantiations of K7, K10,
+    K11 and K21 against their twins on the largest call each got on the
+    GF(2^192) paths (phases 9, 10, 13) and on the GF(2^64) ones (phase 4's
+    gf64 Fractal and Ligero pins, phase 12); the binary paths of phases
+    9-13 must launch them; phase 4 also proves the JAX package's Fractal
+    over GF(2^64) (tests/test_additive_aurora.py:139-157) to its pins;
+14. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -103,22 +112,23 @@ from libiop_tpu_torch.kernels.batch_inv import (batch_inv,  # noqa: E402
                                                 batch_inv_plain)
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows,  # noqa: E402
                                               blake2b_rows_plain, merkle_heap)
-from libiop_tpu_torch.kernels.ell_matvec import (ell_matvec,  # noqa: E402
-                                                 ell_matvec_plain)
+from libiop_tpu_torch.kernels.ell_matvec import (  # noqa: E402
+    ell_matvec, ell_matvec_gf2_plain, ell_matvec_plain)
 from libiop_tpu_torch.kernels.field_addsub import (field_addsub,  # noqa: E402
                                                    field_addsub_plain)
 from libiop_tpu_torch.kernels.fri_fold import fri_fold, fri_fold_plain  # noqa: E402
 from libiop_tpu_torch.kernels.fused_dag import (ADD, MUL, SUB,  # noqa: E402
                                                 fused_dag, fused_dag_plain)
-from libiop_tpu_torch.kernels.horner import (blocking, horner,  # noqa: E402
-                                             horner_plain)
+from libiop_tpu_torch.kernels.horner import (  # noqa: E402
+    blocking, horner, horner_gf2_plain, horner_plain)
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
 from libiop_tpu_torch.kernels import place_columns as k13  # noqa: E402
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain  # noqa: E402
-from libiop_tpu_torch.kernels.p_alpha_m import (p_alpha_m,  # noqa: E402
-                                                p_alpha_m_plain)
-from libiop_tpu_torch.kernels.powers import powers, powers_plain  # noqa: E402
+from libiop_tpu_torch.kernels.p_alpha_m import (  # noqa: E402
+    p_alpha_m, p_alpha_m_gf2_plain, p_alpha_m_plain)
+from libiop_tpu_torch.kernels.powers import (  # noqa: E402
+    powers, powers_gf2_plain, powers_plain)
 from libiop_tpu_torch.kernels.row_dot import row_dot, row_dot_plain  # noqa: E402
 from libiop_tpu_torch.kernels.rs_encode import (rs_encode,  # noqa: E402
                                                 rs_encode_plain)
@@ -128,6 +138,7 @@ from libiop_tpu_torch.kernels.vanishing import (  # noqa: E402
 from libiop_tpu_torch.algebra.domains import MultiplicativeCoset  # noqa: E402
 from libiop_tpu_torch.protocols import common, fri, ligero  # noqa: E402
 from libiop_tpu_torch.protocols import holographic_lincheck  # noqa: E402
+from libiop_tpu_torch.relations import sparse  # noqa: E402
 from libiop_tpu_torch.relations.examples import generate_r1cs_example  # noqa: E402
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,  # noqa: E402
                                            aurora_snark_prover,
@@ -193,6 +204,18 @@ FRACTAL_PINS = {
             "c331495442d9c6c6e2bdbb6e43238d2842fe142ac184bef9dfb20858d7eb0ba0"),
     True: ("cb5405b37a03ca61b33e69a8c4bf17e516a5453cce44a8a22c983ff76f4eaf4d",
            "397b367b9f301b48f136b0e58f9953d204706230e5eca8a8f2836622ca1595d7")}
+
+#: the JAX package's Fractal SNARK over GF(2^64) in
+#: tests/test_additive_aurora.py:139-157 (16 constraints, example from
+#: default_rng(51), security 32, RS extra 2, FRI localization 1, 3 queries,
+#: one repetition, one LDT instance, prover rng default_rng(52), salts from
+#: default_rng(7)): make_zk -> (sha256 of the index roots in key order,
+#: sha256 of the proof)  (tests/test_torch_fractal_additive.py)
+FRACTAL_ADDITIVE_PINS = {
+    False: ("d120168b33d1fa2f502aa62ea4c4f091785e4f62b4149acc4239de94dba6adcd",
+            "6feb5d34322564ed68a04d3d06ea1a91d8c9faa0136d48ee7c891363e7c798c6"),
+    True: ("0d55b85be312e7cf0ad387c653aaea14b5417778e89265579fb17e6b46fa3342",
+           "ebc3f504721aef88054290185c73447274510f02318069883fcb6bafe8b057f5")}
 
 #: the JAX package's Ligero SNARK in tests/test_additive_aurora.py:114-137
 #: (16 constraints, example from default_rng(41), security 32, RS extra 2,
@@ -955,54 +978,69 @@ def second_root_offset(blob):
     return 20 + 12 + first_len + 12
 
 
-def golden_fractal(dev):
-    """Phase 4, continued: the JAX package's Fractal configuration indexed,
-    proven and verified on the card, non-zk and zk: the index roots and the
-    proof hash to the pins; a flipped index root, a flipped round-1 root
-    and a wrong primary input are rejected."""
-    F = edwards_fr()
-    cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
-                                             np.random.default_rng(12345))
-    for make_zk, (want_roots, want) in sorted(FRACTAL_PINS.items()):
-        params = FractalSnarkParams(
-            security_parameter=32, RS_extra_dimensions=1,
-            fri_localization_parameter=1, make_zk=make_zk, pow_bits=2,
-            override_fri_queries=4, override_fri_interactive_repetitions=1,
-            override_ldt_instances=1, override_lincheck_repetitions=1)
-        pidx, vidx = fractal_snark_indexer(cs, params,
-                                           rng=np.random.default_rng(2),
-                                           device=dev)
-        roots = hashlib.sha256(b"".join(
-            r for _, r in sorted(vidx.items()))).hexdigest()
-        with seeded_salts():
-            blob = fractal_snark_prover(cs, primary, aux, pidx, params,
-                                        rng=np.random.default_rng(3),
-                                        device=dev).serialize()
-        digest = hashlib.sha256(blob).hexdigest()
-        tag = "fractal zk" if make_zk else "fractal"
-        log(f"  golden {tag} index roots sha256 {roots} proof sha256 "
-            f"{digest}")
-        if (roots, digest) != (want_roots, want):
-            raise AssertionError(f"golden {tag}: index roots or proof differ "
-                                 "from the JAX package's")
-        bad_index = dict(vidx)
-        key = sorted(bad_index)[0]
-        bad_index[key] = bytes([bad_index[key][0] ^ 1]) + bad_index[key][1:]
-        bad = bytearray(blob)
-        bad[second_root_offset(blob)] ^= 1
-        wrong = [(primary[0] + 1) % F.p] + list(primary[1:])
-        verdicts = [fractal_snark_verifier(
-            cs, prim, vi, BCSTranscript.deserialize(b), params, device=dev)
-            for prim, vi, b in ((primary, vidx, blob),
-                                (primary, bad_index, blob),
-                                (primary, vidx, bytes(bad)),
-                                (wrong, vidx, blob))]
-        if verdicts != [True, False, False, False]:
-            raise AssertionError(f"golden {tag}: verifier gave {verdicts} "
-                                 "for (proof, flipped index root, flipped "
-                                 "round-1 root, wrong input)")
-        log(f"  {tag} verify True; flipped index root, flipped round-1 root "
-            "and wrong primary input rejected")
+def golden_fractal(dev, calls):
+    """Phase 4, continued: the JAX package's Fractal configurations
+    (tests/test_fractal.py:63-98 over edwards_Fr, and
+    tests/test_additive_aurora.py:139-157 over GF(2^64), whose kernel calls
+    land in calls) indexed, proven and verified on the card, non-zk and
+    zk: the index roots and the proof hash to the pins; a flipped index
+    root, a flipped round-1 root and a wrong primary input are rejected."""
+    configs = {
+        "fractal": (edwards_fr(), 12345, dict(
+            RS_extra_dimensions=1, pow_bits=2, override_fri_queries=4,
+            override_lincheck_repetitions=1), 2, 3, FRACTAL_PINS),
+        "fractal gf64": (gf64(), 51, dict(
+            RS_extra_dimensions=2, override_fri_queries=3), None, 52,
+            FRACTAL_ADDITIVE_PINS)}
+    for case, (F, seed, extra, index_seed, prover_seed, pins) in \
+            configs.items():
+        cs, primary, aux = generate_r1cs_example(
+            F, 16, 3, 15, np.random.default_rng(seed))
+        for make_zk, (want_roots, want) in sorted(pins.items()):
+            params = FractalSnarkParams(
+                security_parameter=32, fri_localization_parameter=1,
+                make_zk=make_zk, override_fri_interactive_repetitions=1,
+                override_ldt_instances=1, **extra)
+            index_rng = None if index_seed is None else \
+                np.random.default_rng(index_seed)
+            with kernel_calls(calls if F.kind == "additive" else {}):
+                pidx, vidx = fractal_snark_indexer(cs, params, rng=index_rng,
+                                                   device=dev)
+                with seeded_salts():
+                    blob = fractal_snark_prover(
+                        cs, primary, aux, pidx, params,
+                        rng=np.random.default_rng(prover_seed),
+                        device=dev).serialize()
+            roots = hashlib.sha256(b"".join(
+                r for _, r in sorted(vidx.items()))).hexdigest()
+            digest = hashlib.sha256(blob).hexdigest()
+            tag = f"{case} zk" if make_zk else case
+            log(f"  golden {tag} index roots sha256 {roots} proof sha256 "
+                f"{digest}")
+            if (roots, digest) != (want_roots, want):
+                raise AssertionError(f"golden {tag}: index roots or proof "
+                                     "differ from the JAX package's")
+            bad_index = dict(vidx)
+            key = sorted(bad_index)[0]
+            bad_index[key] = bytes([bad_index[key][0] ^ 1]) + \
+                bad_index[key][1:]
+            bad = bytearray(blob)
+            bad[second_root_offset(blob)] ^= 1
+            wrong = [F.add_ints(primary[0], 1)] + list(primary[1:])
+            verdicts = [fractal_snark_verifier(
+                cs, prim, vi, BCSTranscript.deserialize(b), params,
+                device=dev)
+                for prim, vi, b in ((primary, vidx, blob),
+                                    (primary, bad_index, blob),
+                                    (primary, vidx, bytes(bad)),
+                                    (wrong, vidx, blob))]
+            if verdicts != [True, False, False, False]:
+                raise AssertionError(f"golden {tag}: verifier gave "
+                                     f"{verdicts} for (proof, flipped index "
+                                     "root, flipped round-1 root, wrong "
+                                     "input)")
+            log(f"  {tag} verify True; flipped index root, flipped round-1 "
+                "root and wrong primary input rejected")
 
 
 def golden_ligero_41(dev, calls):
@@ -1074,7 +1112,9 @@ _RECORDED = [
     (holographic_lincheck, "p_alpha_m", "p_alpha_m",
      lambda F, plans, p, r, inv, S: inv.numel()),
     (subspace, "_k17", "additive_fft_batched",
-     lambda F, S, tw, sums, inverse=False: S.numel() if S.ndim == 3 else -1)]
+     lambda F, S, tw, sums, inverse=False: S.numel() if S.ndim == 3 else -1),
+    (sparse, "ell_matvec", "ell_matvec",
+     lambda F, vals_pad, entry, src, vec, K: entry.numel())]
 
 
 @contextlib.contextmanager
@@ -1162,8 +1202,9 @@ def fused_calls(record):
 #: vanishing polynomial, places no columns, and evaluates its LDT's
 #: combination eagerly (K1 and K5), not as a fused DAG.
 _BINARY_KERNELS = {"gf2k_mul", "additive_fft", "linearized",
-                   "fri_fold_additive"}
-_FRACTAL_KERNELS = {"p_alpha_m"}
+                   "fri_fold_additive", "ell_matvec_gf2", "horner_gf2",
+                   "powers_gf2", "p_alpha_m_gf2"}
+_FRACTAL_KERNELS = {"p_alpha_m", "p_alpha_m_gf2"}
 _NOT_ON_PATH = {
     "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"}
     | _BINARY_KERNELS | _FRACTAL_KERNELS,
@@ -1172,9 +1213,8 @@ _NOT_ON_PATH = {
     "ligero": {"poseidon", "lazy_reduce", "fri_fold", "fused_dag",
                "vanishing", "place_columns", "batch_inv"} | _BINARY_KERNELS
     | _FRACTAL_KERNELS,
-    # over a binary field K16-K19 take the prime kernels' places: products,
-    # power tables, Horner, the sparse products and the inverses are K16 +
-    # torch
+    # over a binary field K16-K19 and the GF(2^k) instantiations of K7,
+    # K8, K10 and K11 take the prime kernels' places; the inverses are K16
     "aurora_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                       "lazy_reduce", "ell_matvec", "poseidon", "horner",
                       "powers", "vanishing", "rs_encode", "row_dot",
@@ -1184,6 +1224,13 @@ _NOT_ON_PATH = {
     # sum outside its kernels
     "fractal": {"poseidon", "lazy_reduce", "rs_encode", "row_dot", "horner"}
     | _BINARY_KERNELS,
+    # Fractal over GF(2^k): the binary kernels of Aurora's path but K10
+    # (its lincheck's p_alpha is a closed form), and K21's GF(2^k)
+    # instantiation
+    "fractal_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
+                       "lazy_reduce", "ell_matvec", "poseidon", "horner",
+                       "powers", "vanishing", "rs_encode", "row_dot",
+                       "batch_inv", "p_alpha_m", "horner_gf2"},
     # Ligero over GF(2^k): K16 products, K17 row encodes, K15 row sums,
     # BLAKE2b trees; its LDT is the direct one (no fold, no DAG)
     "ligero_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
@@ -1211,10 +1258,12 @@ def ligero_params(make_zk):
                              height_width_ratio=0.1, make_zk=make_zk)
 
 
-def fractal_params(make_zk):
-    """bench.py's Fractal configuration (bench.py:246-300)."""
+def fractal_params(make_zk, localization=2):
+    """bench.py's Fractal configuration (bench.py:246-300; FRI localization
+    1 for a binary field, as its aurora_gf192 stage)."""
     return FractalSnarkParams(security_parameter=128, RS_extra_dimensions=2,
-                              fri_localization_parameter=2, make_zk=make_zk)
+                              fri_localization_parameter=localization,
+                              make_zk=make_zk)
 
 
 FRACTAL = (fractal_snark_indexer, fractal_snark_prover,
@@ -1223,7 +1272,7 @@ FRACTAL = (fractal_snark_indexer, fractal_snark_prover,
 
 def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
               calls):
-    """Phases 5-12: prove and verify with snark = (prover, verifier), or
+    """Phases 5-13: prove and verify with snark = (prover, verifier), or
     (indexer, prover, verifier) for Fractal, and params over F; the
     prover's rng is default_rng(seed) (None when seed is None).  The
     indexer runs first, timed apart, inside the counted run.  Every kernel
@@ -1634,9 +1683,11 @@ def check_ligero_binary_recorded(F, calls):
 def check_binary_recorded(F, calls):
     """Phase 10: K18 against its twin on the largest and the deepest
     division (most chunks of h/2, one launch each) and the largest product
-    the binary paths gave it."""
+    the binary paths gave it.  The paths must also have called K7, K10 and
+    K11 (their GF(2^k) instantiations, held to their twins in phase 13)."""
     missing = [k for k in ("linearized_divide", "linearized_divide_deep",
-                           "linearized_multiply") if k not in calls]
+                           "linearized_multiply", "ell_matvec", "horner",
+                           "powers") if k not in calls]
     if missing:
         raise AssertionError(f"{F.name}: no recorded call for {missing}")
     eb, mo = elem_bytes(F), gf_mul_ops(F.W)
@@ -1672,6 +1723,78 @@ def check_binary_recorded(F, calls):
              library_ms=None, field=F.name, shape=", ".join(shape))
     report(r)
     return [r]
+
+
+def check_gf2_recorded(F, calls):
+    """Phase 13: the GF(2^k) instantiations of K7, K10, K11 and K21 against
+    their twins (exact) on the largest call each got on the paths over F;
+    each a row of the kernels line.  Bounds count the work, not the
+    designs: a comb product without its fold and an XOR a nonzero slot or
+    a nonzero of K7 and K21, one fold an output (and K21's product by r_M
+    a column and matrix); a product and an XOR a coefficient and point of
+    K10, and its chunk combine; a product an element of K11."""
+    missing = [k for k in ("ell_matvec", "horner", "powers", "p_alpha_m")
+               if k not in calls]
+    if missing:
+        raise AssertionError(f"{F.name}: no recorded call for {missing}")
+    W, eb, mo = F.W, elem_bytes(F), gf_mul_ops(F.W)
+    acc_ops, fold_ops = mo - 16 * W + 2 * W, 16 * W
+    rows = []
+
+    def row(name, source, replaces, kernel, plain, nbytes, nops, shape,
+            **extra):
+        want, plain_ms = timed_once(plain)
+        bms, by = bound_ms(nbytes, nops)
+        rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            max_abs_err=max_abs_err(kernel(), want), ms=time_ms(kernel),
+            plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
+            field=F.name, shape=shape, **extra))
+
+    _, (_, vals, entry, src, vec, K) = calls["ell_matvec"]
+    S = entry.numel() // K
+    live = int((entry != vals.shape[1] - 1).sum())
+    row("ell_matvec_gf2", "libiop_tpu_torch/csrc/ell_matvec.cu",
+        "libiop_tpu/relations/sparse.py:87",
+        lambda: ell_matvec(F, vals, entry, src, vec, K),
+        lambda: ell_matvec_gf2_plain(F, vals, entry, src, vec, K),
+        eb * (live + vec.shape[1] + S) + 16 * S * K,
+        live * acc_ops + S * fold_ops,
+        f"{S} rows x {K} slots ({live} nonzero), vec of {vec.shape[1]}")
+
+    _, (_, coeffs, x) = calls["horner"]
+    d, k = coeffs.shape[1], x.shape[1]
+    m, S = blocking(d)
+    row("horner_gf2", "libiop_tpu_torch/csrc/horner.cu",
+        "libiop_tpu/algebra/poly.py:184",
+        lambda: horner(F, coeffs, x),
+        lambda: horner_gf2_plain(F, coeffs, x),
+        eb * (d + 2 * k), (d + S) * k * (mo + W),
+        f"d = {d} at {k} points (m, S = {m, S})")
+
+    _, (_, xp, n, *start) = calls["powers"]
+    start = start[0] if start else None
+    row("powers_gf2", "libiop_tpu_torch/csrc/powers.cu",
+        "libiop_tpu/algebra/domains.py:80",
+        lambda: powers(F, xp, n, start),
+        lambda: powers_gf2_plain(F, xp, n, start),
+        eb * (n + 2), n * mo, f"table of {n}")
+
+    _, (_, plans, p, r, inv, S) = calls["p_alpha_m"]
+    nnz = sum(plan[2].numel() for plan in plans)
+    nv = inv.numel()
+    row("p_alpha_m_gf2", "libiop_tpu_torch/csrc/p_alpha_m.cu",
+        "libiop_tpu/protocols/holographic_lincheck.py:134",
+        lambda: p_alpha_m(F, plans, p, r, inv, S),
+        lambda: p_alpha_m_gf2_plain(F, plans, p, r, inv, S),
+        p.shape[1] * eb + nnz * (eb + 8) + len(plans) * (S + 1) * 8
+        + nv * (eb + 8),
+        nnz * acc_ops + len(plans) * S * (fold_ops + mo + W),
+        f"{len(plans)} matrices, {nnz} nonzeros, {nv} slots",
+        paths=("fractal_gf192_zk", "fractal_gf192"))
+    for r_ in rows:
+        report(r_)
+    return rows
 
 
 def main():
@@ -1718,10 +1841,10 @@ def main():
     golden_poseidon(dev)
     golden_ligero(dev)
     golden_additive(dev)
-    golden_fractal(dev)
     Fl = gf64()
     calls = {F.name: {}, Fb.name: {}, Fg.name: {}, Fl.name: {},
              "fractal": {}}
+    golden_fractal(dev, calls[Fl.name])
     golden_ligero_41(dev, calls[Fl.name])
 
     paths = {}
@@ -1804,9 +1927,22 @@ def main():
     rows += check_fractal_recorded(F, calls["fractal"])
     rows += check_ligero_binary_recorded(Fl, calls[Fl.name])
     field_paths[Fl.name] = ("ligero_gf64",)
+
+    log(f"phase 13: Fractal over GF(2^192) at 2^{args.log_n} constraints, "
+        "indexer apart, non-zk and zk")
+    for make_zk, label in ((False, "fractal_gf192"),
+                           (True, "fractal_gf192_zk")):
+        paths[label], _, record = main_path(
+            Fg, dev, cs_g, primary_g, aux_g, label, FRACTAL,
+            fractal_params(make_zk, localization=1), 1,
+            _NOT_ON_PATH["fractal_binary"], calls[Fg.name])
+    rows.append(check_fused_dag(Fg, record) | {"paths": ("fractal_gf192_zk",)})
+    del record
+    for Fx in (Fg, Fl):
+        rows += check_gf2_recorded(Fx, calls[Fx.name])
     del calls
 
-    log("phase 13: results")
+    log("phase 14: results")
     for r in rows:
         # the row's main path: the first of its field's paths (zk first),
         # or of the paths it names, that launched it

@@ -47,17 +47,9 @@ def clear_device_tables():
 
 
 def device_powers(F, x: torch.Tensor, n: int) -> torch.Tensor:
-    """[x^0, ..., x^(n-1)] as (L, n) for a device element x (L,): kernel K11
-    on the card over a prime field; over a binary field doubling through
-    K16 products (the table so far times x^(2^j))."""
-    if F.kind != "additive":
-        return powers(F, x.contiguous(), n)
-    out = F.ones((1,), x.device)
-    s = x.reshape(F.L, 1)
-    while out.shape[1] < n:
-        out = torch.cat([out, F.mul(out, s)], dim=1)
-        s = F.square(s)
-    return out[:, :n].contiguous()
+    """[x^0, ..., x^(n-1)] as (L, n) for a device element x (L,), over a
+    prime field or GF(2^k) (kernel K11 on the card)."""
+    return powers(F, x.contiguous(), n)
 
 
 def bitrev_permutation(n: int) -> np.ndarray:

@@ -2,8 +2,9 @@
 
 Port of libiop_tpu/algebra/generic.py: the call surface the protocols use
 (domains, FFTs, vanishing polynomials, column placement, host-int Lagrange
-helpers), dispatching between multiplicative cosets of prime fields and
-affine subspaces of binary fields (``is_additive``).
+helpers, the unnormalized Lagrange polynomial p_alpha), dispatching
+between multiplicative cosets of prime fields and affine subspaces of
+binary fields (``is_additive``).
 """
 from __future__ import annotations
 
@@ -195,3 +196,36 @@ def vanishing_derivative_list(domain) -> List[int]:
     domain._zprime_list = out
     return out
 
+
+def vanishing_derivative_int_at_element(domain, index: int) -> int:
+    """Z'(e_index) for e_index the index-th domain element."""
+    return vanishing_derivative_list(domain)[index]
+
+
+# -- the succinct (unnormalized) Lagrange polynomial of a domain H at alpha:
+# p_alpha(Y) = (Z_H(alpha) - Z_H(Y)) / (alpha - Y), both families ----------
+def lagrange_poly_evals_over_any(H, alpha: int, L, device) -> torch.Tensor:
+    """(limbs, |L|) evaluations of p_alpha over L (alpha outside L): one
+    K20 launch over a coset; over a subspace the numerator is an XOR of
+    memoized Z_H tables and the division a K16 inverse and product."""
+    if not is_additive(H):
+        return mpoly.lagrange_poly_evals_over(H, alpha, L, device)
+    F = H.field
+    z_over_L = vanishing_evals_over_any(H, L, device)
+    num = F.add(z_over_L, F.scalar(vanishing_eval_int(H, alpha), z_over_L))
+    elems = L.elements(device)
+    denom = F.sub(elems, F.scalar(alpha, elems))
+    return F.batch_inverse_and_mul(denom, num)
+
+
+def lagrange_poly_eval_at_point_int_any(H, alpha: int, x: int) -> int:
+    """Host-int p_alpha(x); x == alpha gives the derivative Z'_H(alpha)
+    (the constant eps over a subspace)."""
+    if not is_additive(H):
+        return mpoly.lagrange_poly_eval_at_point_int(H, alpha, x)
+    F = H.field
+    if x == alpha:
+        return linearized_vanishing(H).formal_derivative()
+    return F.mul_ints(F.sub_ints(vanishing_eval_int(H, alpha),
+                                 vanishing_eval_int(H, x)),
+                      F.inv_int(F.sub_ints(alpha, x)))

@@ -53,6 +53,11 @@ class LinearizedVanishing:
         """The coefficient of x (the additive sumcheck's eps)."""
         return self.linear_coeffs[0]
 
+    def formal_derivative(self) -> int:
+        """Z'(x), the constant eps: in characteristic 2 only the x term of
+        a linearized polynomial survives differentiation."""
+        return self.linear_coeffs[0]
+
     def evals_over(self, L: AffineSubspace, device) -> torch.Tensor:
         """(W, |L|) evaluations over L (memoized per device): Z on L's
         basis and shift, then subset sums."""

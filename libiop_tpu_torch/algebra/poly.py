@@ -5,8 +5,8 @@ Port of libiop_tpu/algebra/poly.py (multiplicative parts).  For a coset H of
 order h and shift s, Z_H(x) = x^h - s^h; its evaluations over another coset
 repeat with period |L|/gcd(|L|, h), so only that short cycle is computed.
 Multiplication and division by Z_H run through kernel K12
-(kernels/vanishing.py), evaluation through K10 (kernels/horner.py) and the
-inverses through K20 (kernels/batch_inv.py).
+(kernels/vanishing.py), evaluation (over either field family) through K10
+(kernels/horner.py) and the inverses through K20 (kernels/batch_inv.py).
 """
 from __future__ import annotations
 
@@ -14,7 +14,6 @@ from math import gcd
 
 import torch
 
-from ..fields.binary import xor_reduce
 from ..kernels.horner import horner
 from ..kernels.vanishing import vanishing_divide, vanishing_multiply
 from .domains import MultiplicativeCoset, device_powers
@@ -110,48 +109,10 @@ def divide_by_vanishing(coeffs: torch.Tensor, H: MultiplicativeCoset):
 
 def horner_eval(F, coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Evaluate the polynomial ``coeffs`` (L, d) at points x (L,) or (L, k)
-    (kernel K10 on the card over a prime field).  Large degrees use
-    p(x) = sum_s x^{ms} q_s(x) with m ~ sqrt(d) chunks evaluated together,
-    then an S-step Horner in x^m.  Over a binary field the same split runs
-    as K16 products and XOR reductions (_binary_eval)."""
+    over a prime field or GF(2^k) (kernel K10 on the card).  Large degrees
+    use p(x) = sum_s x^{ms} q_s(x) with m ~ sqrt(d) chunks evaluated
+    together, then an S-step Horner in x^m."""
     single = x.ndim == 1
     xs = x[:, None] if single else x
-    if F.kind == "additive":
-        out = _binary_eval(F, coeffs.contiguous(), xs.contiguous())
-    else:
-        out = horner(F, coeffs.contiguous(), xs.contiguous())
+    out = horner(F, coeffs.contiguous(), xs.contiguous())
     return out[:, 0] if single else out
-
-
-#: elements (chunks x chunk length x points) one binary evaluation step
-#: forms at once
-_BINARY_EVAL_BLOCK = 1 << 22
-
-
-def _power_table(F, x: torch.Tensor, n: int) -> torch.Tensor:
-    """(W, n, k) powers x^0..x^(n-1) of points x (W, k), by doubling."""
-    out = F.ones((1, x.shape[1]), x.device)
-    s = x[:, None, :]
-    while out.shape[1] < n:
-        out = torch.cat([out, F.mul(out, s)], dim=1)
-        s = F.square(s)
-    return out[:, :n]
-
-
-def _binary_eval(F, coeffs: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """sum_i c_i x^i at points x (W, k) over GF(2^k): chunk values
-    q_s(x) = sum_j c_{s m + j} x^j with the powers x^j, then
-    sum_s q_s(x) (x^m)^s, each a K16 product and an XOR reduction."""
-    d, k = coeffs.shape[1], x.shape[1]
-    m = 1 << ((max(d, 1) - 1).bit_length() + 1) // 2
-    S = -(-d // m)
-    if S * m != d:
-        coeffs = torch.cat([coeffs, F.zeros((S * m - d,), coeffs.device)],
-                           dim=1)
-    chunks = coeffs.reshape(F.W, S, m, 1)
-    pw = _power_table(F, x, m)
-    step = max(1, _BINARY_EVAL_BLOCK // (S * m))
-    q = torch.cat([xor_reduce(F.mul(chunks, pw[:, None, :, a:a + step]),
-                              dim=2) for a in range(0, k, step)], dim=2)
-    xm = F.mul(pw[:, -1], x)
-    return xor_reduce(F.mul(q, _power_table(F, xm, S)), dim=1)

@@ -30,9 +30,20 @@
 // Bound on the H100: memory at the paths' shapes (per nonzero 8W bytes of
 // vals and 8 of src, p read once, against one wide product, half a CIOS
 // product); the p gathers are scattered.
+//
+// GF(2^k) instantiation (W = 2, 4, 6, 8 words; the reference's function
+// over a binary field): the same Args, the same groups and the same walk
+// of M^T in CSR form.  Reduction modulo the pentanomial is linear over
+// GF(2), so a lane XORs its nonzeros' unreduced 2W-word carry-less
+// products (gf::clmul of csrc/gf2k.cuh), the group XORs its lanes'
+// accumulators by shuffles, and lane 0 reduces once a matrix, multiplies
+// by r_M (its canonical words in Matrix::r) and XORs the matrices' terms.
+// No fold is ever needed.  Integer-instruction bound: a Horner clmul of
+// about 32 (4 W^2 + 2 W) instructions a nonzero against 8W + 8 bytes.
 #include <cuda_runtime.h>
 
 #include "field.cuh"
+#include "gf2k.cuh"
 
 namespace {
 
@@ -43,7 +54,7 @@ struct Matrix {
   long long nvals;
   const long long* offsets;  // (S + 1) column starts into vals and src
   const long long* src;      // (nvals) indices into p
-  uint32_t r[fp::kMaxWords];  // r_M in Montgomery form, 32-bit words
+  uint32_t r[fp::kMaxWords];  // r_M: Montgomery form, or GF(2^k) words
 };
 
 struct Args {
@@ -54,9 +65,9 @@ struct Args {
   const long long* inv;  // (nv) inverse placement, S the zero sentinel
   long long S;
   long long nv;
-  int cap;
+  int cap;    // prime fields only
   int group;  // G lanes a slot
-  const uint32_t* r_mod_p;  // (2W, 1) limbs of 2^(32W) mod p
+  const uint32_t* r_mod_p;  // (2W, 1) limbs of 2^(32W) mod p; prime only
 };
 
 template <int W>
@@ -130,6 +141,64 @@ int launch(void* out, const Args* A, const uint32_t* field, void* stream) {
   return (int)cudaGetLastError();
 }
 
+template <int W>
+__global__ void p_alpha_m_gf2_kernel(uint32_t* __restrict__ out, Args A,
+                                     gf::Taps T) {
+  const size_t t = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int G = A.group;
+  const int lane = (int)(t % G);
+  const size_t c = t / G;
+  // every lane of a warp reaches the shuffles below, so none returns early
+  const bool live = c < (size_t)A.nv;
+  const long long j = live ? A.inv[c] : A.S;
+  uint32_t total[W];
+  gf::set_zero<W>(total);
+  for (int mi = 0; mi < A.n_mats; ++mi) {
+    const Matrix& M = A.m[mi];
+    uint32_t acc[2 * W];
+#pragma unroll
+    for (int q = 0; q < 2 * W; ++q) acc[q] = 0;
+    if (j < A.S) {
+      const long long end = M.offsets[j + 1];
+      for (long long k = M.offsets[j] + lane; k < end; k += G) {
+        uint32_t x[W], y[W], prod[2 * W];
+        gf::load<W>(x, M.vals, (size_t)M.nvals, (size_t)k);
+        gf::load<W>(y, A.p, (size_t)A.np, (size_t)M.src[k]);
+        gf::clmul<W>(prod, x, y);
+#pragma unroll
+        for (int q = 0; q < 2 * W; ++q) acc[q] ^= prod[q];
+      }
+    }
+    for (int off = G / 2; off > 0; off /= 2) {
+#pragma unroll
+      for (int q = 0; q < 2 * W; ++q)
+        acc[q] ^= __shfl_down_sync(0xffffffffu, acc[q], off, G);
+    }
+    uint32_t v[W], r[W];
+    gf::reduce<W>(v, acc, T);
+#pragma unroll
+    for (int q = 0; q < W; ++q) r[q] = M.r[q];
+    gf::mul<W>(v, v, r, T);
+    gf::add<W>(total, total, v);
+  }
+  if (live && lane == 0) gf::store<W>(out, (size_t)A.nv, c, total);
+}
+
+template <int W>
+int launch_gf2(void* out, const Args* A, const uint32_t* taps, void* stream) {
+  const int G = A->group;
+  if (A->n_mats < 1 || A->n_mats > kMaxMats || G < 1 || G > 32 ||
+      (G & (G - 1)))
+    return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const long long total = A->nv * G;
+  if (total > 0)
+    p_alpha_m_gf2_kernel<W><<<(unsigned)((total + threads - 1) / threads),
+                              threads, 0, (cudaStream_t)stream>>>(
+        (uint32_t*)out, *A, gf::taps_from(taps));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // out: (2W, nv) limbs; args: the matrices' CSR plans and r_M, p, the
@@ -137,4 +206,12 @@ int launch(void* out, const Args* A, const uint32_t* field, void* stream) {
 extern "C" int p_alpha_m_launch(void* out, const void* args, int words,
                                 const uint32_t* field, void* stream) {
   FP_DISPATCH_WORDS(words, launch, out, (const Args*)args, field, stream)
+}
+
+// GF(2^k): out (W, nv) words; args as above with vals and p in words and
+// r_M's canonical words (cap and r_mod_p unused); taps: the field's four
+// reduction taps
+extern "C" int p_alpha_m_gf2_launch(void* out, const void* args, int words,
+                                    const uint32_t* taps, void* stream) {
+  GF_DISPATCH_WORDS(words, launch_gf2, out, (const Args*)args, taps, stream)
 }

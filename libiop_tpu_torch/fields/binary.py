@@ -234,6 +234,10 @@ class BinaryField:
         """Itoh-Tsujii inversion, inv(0) = 0 (K16 on the card)."""
         return gf2k_inv(self, a.contiguous())
 
+    def batch_inverse_and_mul(self, a, c):
+        """inv(a) * c elementwise: a K16 inverse, then a K16 product."""
+        return self.mul(self.inv(a), c)
+
     def pow_static(self, a, e: int):
         """a^e for a static e >= 0 (square and multiply, MSB first)."""
         acc = self.ones(a.shape[1:], a.device)
@@ -242,19 +246,6 @@ class BinaryField:
             if bit == "1":
                 acc = self.mul(acc, a)
         return acc
-
-    def segment_reduce(self, prod, seg_ids, num_segments: int):
-        """XOR segment reduction (W, nnz) -> (W, num_segments): bit planes,
-        an integer segment sum and its parity, as the reference."""
-        W, nnz = prod.shape
-        shifts = torch.arange(32, dtype=torch.int64, device=prod.device)
-        bits = (prod.to(torch.int64)[:, None, :] >> shifts[None, :, None]) & 1
-        sums = torch.zeros((W * 32, num_segments), dtype=torch.int64,
-                           device=prod.device)
-        sums.index_add_(1, seg_ids, bits.reshape(W * 32, nnz))
-        parity = (sums & 1).reshape(W, 32, num_segments)
-        words = (parity << shifts[None, :, None]).sum(dim=1)
-        return (words - ((words >> 31) << 32)).to(torch.int32)
 
     # -- predicates / serialization -------------------------------------------
     def is_zero(self, a):

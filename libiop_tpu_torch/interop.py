@@ -50,8 +50,9 @@ def fractal_index_from_reference(F, artifact, device="cpu"):
     """The port's Fractal prover index from the reference's
     ``fractal_snark_indexer`` prover index (evaluations of the round-0
     oracles, the K-vectors, and per round-0 tree its leaf blocks and node
-    digests; the device-built BLAKE2b trees' word rows), so the port proves
-    from an index the reference made."""
+    digests; the device-built BLAKE2b trees' word rows), over a prime field
+    (limbs) or GF(2^k) (words), so the port proves from an index the
+    reference made."""
     evals_map, vectors, mt_data = artifact
     evals = {int(oid): limbs_from_numpy(np.asarray(ev), device)
              for oid, ev in evals_map.items()}

@@ -200,7 +200,7 @@ class RationalLinearCombination:
     def values_over_K(F, coeff_ints, numerators_over_K, denominators_over_K):
         """sum_i c_i N_i(k) / D_i(k) over K (the prover's rational sumcheck
         input): each N_i / D_i one K20 launch, the inverse fused with the
-        product by N_i."""
+        product by N_i (over GF(2^k) a K16 inverse and product)."""
         acc = None
         for c, n_ev, d_ev in zip(coeff_ints, numerators_over_K,
                                  denominators_over_K):

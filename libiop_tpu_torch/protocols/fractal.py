@@ -38,10 +38,6 @@ class FractalIOPParams:
                  ldt_reducer_soundness_type: str =
                  LDTReducerSoundnessType.optimistic_heuristic):
         m = r1cs.num_constraints
-        if F.kind == "additive":
-            raise NotImplementedError(
-                "Fractal over a binary field is not ported yet; the port "
-                "runs it over prime fields (multiplicative domains)")
         assert m & (m - 1) == 0, "Fractal needs a power-of-two #constraints"
         assert m == r1cs.num_variables + 1, "Fractal needs square matrices"
         self.F = F
@@ -156,8 +152,7 @@ class FractalIOP:
         dev = self.iop.device
         vectors = []
         for idxr in self.indexers:
-            vecs = [self.F.from_ints(v, dev)
-                    for v in idxr.compute_oracles_over_K()]
+            vecs = idxr.vectors_over_K(dev)
             idxr.submit_oracles(vecs)
             vectors.append(vecs)
         self.protocol.set_index_vectors_over_K(vectors)

@@ -1,5 +1,5 @@
 """Fractal's matrix indexer, the holographic preprocessing of A, B, C (port
-of libiop_tpu/protocols/fractal_indexer.py, multiplicative domains).
+of libiop_tpu/protocols/fractal_indexer.py, both domain families).
 
 Per matrix four index oracles over the index domain K (|K| >= nnz(M)),
 low-degree extended to the codeword domain: row, col (elements of the
@@ -8,9 +8,12 @@ derivative u_H(col, col) = Z'_H(col)) and row*col.  The entries are
 ordered by (row, col) as np.lexsort((cols, rows)) orders them, padded with
 (H's first element, H's first element, 0, its square) up to |K|, and then
 row and col are swapped (the protocol works with M' where
-M'_ij = M_ji u_H(j, j)).  The K-vectors are host code over numpy object
-arrays of canonical ints, computed once per matrix (the reference computes
-them twice); their LDEs are one IFFT and one FFT each on the device.
+M'_ij = M_ji u_H(j, j)).  Over a coset the K-vectors are host code over
+numpy object arrays of canonical ints; over a subspace, whose elements
+come by index and whose Z' is the constant eps (one inverse), they are
+gathers and K16 products on the device.  Each is computed once per matrix
+(the reference computes them twice); their LDEs are one IFFT and one FFT
+each on the device.
 """
 from __future__ import annotations
 
@@ -20,6 +23,8 @@ import numpy as np
 import torch
 
 from ..algebra.generic import (batch_inv_ints, fft_any, ifft_any,
+                               is_additive,
+                               vanishing_derivative_int_at_element,
                                vanishing_derivative_list)
 from ..iop.runtime import IOPProtocol, OracleHandle
 
@@ -64,18 +69,53 @@ class MatrixIndexer:
         return [self.row_handle, self.col_handle, self.val_handle,
                 self.row_times_col_handle]
 
-    def compute_oracles_over_K(self) -> List[np.ndarray]:
-        """The four |K|-vectors (row, col, val, row*col) as object arrays of
-        canonical ints, after the row <-> col swap."""
-        F, H, M = self.F, self.H, self.matrix
+    def _entries(self):
+        """(order, rows, col_index): the entries in (row, col) order, their
+        rows and their columns' indices in H."""
+        H, M = self.H, self.matrix
         order = np.lexsort((M.cols, M.rows))
-        rows, cols = M.rows[order], M.cols[order]
+        reindex = np.array([H.reindex_by_subgroup(self.input_variable_dim, v)
+                            for v in range(H.order)], dtype=np.int64)
+        return order, M.rows[order], reindex[M.cols[order]]
+
+    def vectors_over_K(self, device) -> List[torch.Tensor]:
+        """The four |K|-vectors (row, col, val, row*col) on the device,
+        after the row <-> col swap."""
+        if not is_additive(self.H):
+            return [self.F.from_ints(v, device)
+                    for v in self.compute_oracles_over_K()]
+        F, H = self.F, self.H
+        order, rows, col_index = self._entries()
+        elems = H.elements(device)
+        row_elems = elems.index_select(1, torch.from_numpy(rows).to(device))
+        col_elems = elems.index_select(
+            1, torch.from_numpy(col_index).to(device))
+        coeffs = torch.from_numpy(np.ascontiguousarray(
+            self.matrix.vals[:, order])).to(device)
+        # Z'_H is the constant eps over a subspace: one inverse
+        deriv_inv = F.inv_int(vanishing_derivative_int_at_element(H, 0))
+        pad_n = self.K.order - len(order)
+        pad = elems[:, :1].expand(F.W, pad_n)
+
+        def padded(v, fill):
+            return torch.cat([v, fill], dim=1).contiguous()
+
+        row_evals = padded(row_elems, pad)
+        col_evals = padded(col_elems, pad)
+        val_evals = padded(F.mul(coeffs, F.scalar(deriv_inv, coeffs)),
+                           F.zeros((pad_n,), device))
+        rc_evals = F.mul(row_evals, col_evals)
+        # transpose: swap row and col (val is already indexed for M')
+        return [col_evals, row_evals, val_evals, rc_evals]
+
+    def compute_oracles_over_K(self) -> List[np.ndarray]:
+        """The four |K|-vectors (row, col, val, row*col) over a coset as
+        object arrays of canonical ints, after the row <-> col swap."""
+        F, H, M = self.F, self.H, self.matrix
+        order, rows, col_index = self._entries()
         coeffs = F.to_ints(torch.from_numpy(
             np.ascontiguousarray(M.vals[:, order])))
         elems = _elements_ints(H)
-        reindex = np.array([H.reindex_by_subgroup(self.input_variable_dim, v)
-                            for v in range(H.order)], dtype=np.int64)
-        col_index = reindex[cols]
         deriv_inv = np.array(batch_inv_ints(F, vanishing_derivative_list(H)),
                              dtype=object)
         row_elems, col_elems = elems[rows], elems[col_index]

@@ -13,9 +13,11 @@ libiop_tpu/protocols/holographic_lincheck.py).
       D_M = (row_M - beta)(col_M - alpha)
   through the indexed row, col, val and row*col oracles.
 
-On the card p_alpha over L and over H are one K20 launch each (the
-inverse of alpha - x fused with the product by its numerator) and
-sum_M r_M M^T p_alpha, placed into the variable slots, is one K21 launch.
+On the card p_alpha over L and over H are one K20 launch each over a
+prime field (the inverse of alpha - x fused with the product by its
+numerator; a K16 inverse and product over GF(2^k)) and sum_M r_M M^T
+p_alpha, placed into the variable slots, is one K21 launch (its GF(2^k)
+instantiation over a binary field).
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ from typing import List, Optional
 import numpy as np
 
 from ..algebra.domains import device_table
-from ..algebra.generic import fft_any, ifft_any, vanishing_eval_int
-from ..algebra.poly import (lagrange_poly_eval_at_point_int,
-                            lagrange_poly_evals_over)
+from ..algebra.generic import (fft_any, ifft_any,
+                               lagrange_poly_eval_at_point_int_any,
+                               lagrange_poly_evals_over_any,
+                               vanishing_eval_int)
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
 from ..kernels.p_alpha_m import p_alpha_m
 from .common import RationalLinearCombination, SingleBoundaryConstraint
@@ -76,7 +79,7 @@ class HolographicLincheckVirtualOracle(VirtualOracle):
         if self.alpha is None:
             return None
         if self._p_alpha_cw is None:
-            self._p_alpha_cw = lagrange_poly_evals_over(
+            self._p_alpha_cw = lagrange_poly_evals_over_any(
                 self.H, self.alpha, self.L, device)
         return [self._p_alpha_cw] + list(self.r_Mz)
 
@@ -96,7 +99,7 @@ class HolographicLincheckVirtualOracle(VirtualOracle):
         assert self.alpha is not None
         F = self.F
         fz, t = vals[0], vals[self.num_matrices + 1]
-        pa = lagrange_poly_eval_at_point_int(self.H, self.alpha, x)
+        pa = lagrange_poly_eval_at_point_int_any(self.H, self.alpha, x)
         combined = 0
         for r, v in zip(self.r_Mz, vals[1:]):
             combined = F.add_ints(combined, F.mul_ints(r, v))
@@ -290,8 +293,8 @@ class HolographicMultiLincheck:
         dev = self.iop.device
         for rep in range(self.params.num_repetitions):
             alpha, r_Mz = self._challenges(rep)
-            p_alpha_over_H = lagrange_poly_evals_over(self.H, alpha, self.H,
-                                                      dev)
+            p_alpha_over_H = lagrange_poly_evals_over_any(
+                self.H, alpha, self.H, dev)
             p_alpha_M_over_H = compute_p_alpha_M_evals(
                 F, self.input_variable_dim, self.H, p_alpha_over_H, r_Mz,
                 self.matrices)

@@ -1,14 +1,20 @@
-"""Rational sumcheck over the index domain K (port of the multiplicative
-branch of libiop_tpu/protocols/rational_sumcheck.py): the prover sends the
-re-extension p of N/D over K with the constant coefficient dropped (it
-encodes the claimed sum, sum_K = |K| c_0); the constraint is
-q(x) = (D(x) (x p(x) + mu/|K|) - N(x)) / Z_K(x).
+"""Rational sumcheck over the index domain K (port of
+libiop_tpu/protocols/rational_sumcheck.py, both domain families): the
+prover sends the re-extension p of N/D over K with one coefficient
+dropped, the one that encodes the claimed sum mu:
+* multiplicative: the constant one (mu = |K| c_0); the constraint is
+  q(x) = (D(x) (x p(x) + mu/|K|) - N(x)) / Z_K(x);
+* additive: the top one (mu = eps c_{|K|-1}, eps the x coefficient of
+  K's linearized Z_K); the constraint is
+  q(x) = (D(x) (p(x) + eps^-1 mu x^(|K|-1)) - N(x)) / Z_K(x).
 """
 from __future__ import annotations
 
 from typing import Optional
 
-from ..algebra.generic import (fft_any, ifft_any, vanishing_eval_int,
+from ..algebra.domains import device_table
+from ..algebra.generic import (fft_any, ifft_any, is_additive,
+                               linearized_vanishing, vanishing_eval_int,
                                vanishing_inverse_evals_over_any)
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
 
@@ -20,31 +26,52 @@ class SumcheckConstraintOracle(VirtualOracle):
         self.F = F
         self.K = K
         self.L = L
+        self.additive = is_additive(K)
         self.claimed_sum: Optional[int] = None
 
     def set_claimed_sum(self, mu: int):
         F = self.F
         self.claimed_sum = F.sample_int(mu)
-        self.mu_scaled = F.mul_ints(self.claimed_sum,
-                                    F.inv_int(self.K.order % F.p))
+        scale = linearized_vanishing(self.K).epsilon if self.additive \
+            else self.K.order % F.p
+        self.mu_scaled = F.mul_ints(self.claimed_sum, F.inv_int(scale))
 
     def traced_aux(self, device):
+        """[1/Z_K over L, x over L (x^(|K|-1) over a subspace), the scaled
+        claimed sum]."""
         if self.claimed_sum is None:
             return None
-        return [vanishing_inverse_evals_over_any(self.K, self.L, device),
-                self.L.elements(device), self.mu_scaled]
+        K, L = self.K, self.L
+        if self.additive:
+            x = device_table(
+                ("x_pow", L._key(), K.order - 1), device,
+                lambda: K.field.pow_static(L.elements(device), K.order - 1))
+        else:
+            x = L.elements(device)
+        return [vanishing_inverse_evals_over_any(K, L, device), x,
+                self.mu_scaled]
+
+    def traced_sig(self):
+        return (self.additive,)
 
     def traced_contents(self, F, aux, evals):
         z_inv, x, mu = aux
         p_evals, n_evals, d_evals = evals
-        inner = F.add(F.mul(x, p_evals), mu)
+        if self.additive:
+            inner = F.add(p_evals, F.mul(x, mu))
+        else:
+            inner = F.add(F.mul(x, p_evals), mu)
         return F.mul(F.sub(F.mul(d_evals, inner), n_evals), z_inv)
 
     def evaluation_at_point(self, position, x, vals):
         assert self.claimed_sum is not None
         F = self.F
         p_x, n_x, d_x = vals
-        inner = F.add_ints(F.mul_ints(x, p_x), self.mu_scaled)
+        if self.additive:
+            inner = F.add_ints(p_x, F.mul_ints(
+                self.mu_scaled, F.pow_int(x, self.K.order - 1)))
+        else:
+            inner = F.add_ints(F.mul_ints(x, p_x), self.mu_scaled)
         return F.mul_ints(F.sub_ints(F.mul_ints(d_x, inner), n_x),
                           F.inv_int(vanishing_eval_int(self.K, x)))
 
@@ -82,10 +109,17 @@ class RationalSumcheck:
         """rational_over_K: (L, |K|) values of N/D over K (natural order)."""
         F = self.F
         coeffs = ifft_any(rational_over_K, self.K)
-        c0 = int(F.to_ints(coeffs[:, :1])[0])
-        self.claimed_sum = F.mul_ints(c0, self.K.order % F.p)
+        if self.constraint_oracle.additive:
+            top = int(F.to_ints(coeffs[:, -1:])[0])
+            self.claimed_sum = F.mul_ints(
+                linearized_vanishing(self.K).epsilon, top)
+            reext = coeffs[:, :-1]
+        else:
+            c0 = int(F.to_ints(coeffs[:, :1])[0])
+            self.claimed_sum = F.mul_ints(c0, self.K.order % F.p)
+            reext = coeffs[:, 1:]
         self.iop.submit_oracle(self.reextended_handle,
-                               fft_any(coeffs[:, 1:].contiguous(), self.L))
+                               fft_any(reext.contiguous(), self.L))
         self.constraint_oracle.set_claimed_sum(self.claimed_sum)
 
     def get_claimed_sum(self) -> int:

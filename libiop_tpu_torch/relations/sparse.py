@@ -4,15 +4,17 @@ Port of libiop_tpu/relations/sparse.py.  The COO structure is host numpy;
 ``matvec`` pads every segment to the maximum degree K (a static ELL plan,
 built once and kept on the device) and runs kernel K7 over it
 (kernels/ell_matvec.py).  When padding would exceed 4x nnz it falls back to
-a segment sum (``index_add_``) reduced once (K1 products, K6 reduction).
+a segment sum (``index_add_``) reduced once (K1 products, K6 reduction);
+over GF(2^k) to the CSR walk of kernel K21 (kernels/p_alpha_m.py) with
+one matrix, r = 1 and the identity placement.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..fields.binary import xor_reduce
 from ..kernels.ell_matvec import ell_matvec
+from ..kernels.p_alpha_m import p_alpha_m
 
 #: lazily summed terms per row stay far inside int64; the cap mirrors the
 #: reference's so the same systems are accepted
@@ -94,13 +96,13 @@ class SparseMatrix:
             vals_pad = self._vals_pad(dev)
             e_dev = self._dev(tag + "_entry", dev, lambda: entry_idx)
             s_dev = self._dev(tag + "_src", dev, lambda: src_flat)
-            if F.kind == "additive":
-                # the reference's XOR branch (sparse.py:87-101): K16
-                # products of the gathered entries, XOR over each row
-                prod = F.mul(vals_pad.index_select(1, e_dev),
-                             vec.index_select(1, s_dev))
-                return xor_reduce(prod.reshape(F.L, num_segments, K), dim=2)
             return ell_matvec(F, vals_pad, e_dev, s_dev, vec.contiguous(), K)
+        if F.kind == "additive":
+            ident = self._dev(tag + "_ident", dev,
+                              lambda: np.arange(num_segments, dtype=np.int64))
+            return p_alpha_m(F, [self._csr_device(tag, seg_ids, src_ids,
+                                                  num_segments, dev)],
+                             vec.contiguous(), [1], ident, num_segments)
         vals = self._dev("vals", dev, lambda: self.vals)
         src = self._dev(tag + "_src_coo", dev, lambda: src_ids)
         seg = self._dev(tag + "_seg_coo", dev, lambda: seg_ids)
@@ -112,23 +114,29 @@ class SparseMatrix:
         return self._apply("mv", self.rows, self.cols, self.num_rows, z,
                            force_segsum)
 
+    def _csr_device(self, tag, seg_ids, src_ids, num_segments, device):
+        """The matrix grouped by segment on the device, (vals, offsets, src,
+        kmax): segment j's nonzeros are vals[:, offsets[j]:offsets[j + 1]]
+        in entry order, src their indices into the vector, kmax the densest
+        segment's count.  No padding (kernel K21 reads it)."""
+        key = tag + "_csr"
+        if key not in self._plans:
+            counts = np.bincount(seg_ids, minlength=num_segments)
+            offsets = np.zeros(num_segments + 1, np.int64)
+            np.cumsum(counts, out=offsets[1:])
+            order = np.argsort(seg_ids, kind="stable")
+            self._plans[key] = (self.vals[:, order], offsets, src_ids[order],
+                                int(counts.max(initial=0)))
+        vals, offsets, src, kmax = self._plans[key]
+        return (self._dev(key + "_vals", device, lambda: vals),
+                self._dev(key + "_offsets", device, lambda: offsets),
+                self._dev(key + "_src", device, lambda: src), kmax)
+
     def transpose_csr_device(self, device):
         """M^T in CSR form on the device, (vals, offsets, src, kmax): column
-        j's nonzeros are vals[:, offsets[j]:offsets[j + 1]] in row order,
-        src their rows, kmax the densest column's count.  No padding, so
-        every column distribution takes nnz slots (kernel K21 reads it)."""
-        if "csrT" not in self._plans:
-            counts = np.bincount(self.cols, minlength=self.num_cols)
-            offsets = np.zeros(self.num_cols + 1, np.int64)
-            np.cumsum(counts, out=offsets[1:])
-            order = np.argsort(self.cols, kind="stable")
-            self._plans["csrT"] = (self.vals[:, order], offsets,
-                                   self.rows[order],
-                                   int(counts.max(initial=0)))
-        vals, offsets, src, kmax = self._plans["csrT"]
-        return (self._dev("csrT_vals", device, lambda: vals),
-                self._dev("csrT_offsets", device, lambda: offsets),
-                self._dev("csrT_src", device, lambda: src), kmax)
+        j's nonzeros in row order, src their rows (kernel K21's plan)."""
+        return self._csr_device("mvT", self.cols, self.rows, self.num_cols,
+                                device)
 
     def matvec_transpose(self, y, force_segsum: bool = False):
         """M^T @ y for y (L, num_rows) -> (L, num_cols)."""

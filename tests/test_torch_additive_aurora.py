@@ -7,8 +7,10 @@ queries, prover rng default_rng(0)); its non-zk proof must hash to
 ADDITIVE_GOLDEN_SHA256, which the JAX package's own tier-1 test pins.  The
 zk pin is the same configuration with make_zk=True and
 ``secrets.token_bytes`` drawn from default_rng(7), as the JAX package's
-prover gives it.  Tier 1 runs only the port; the slow tests rerun the JAX
-prover for the zk pin and cross-verify GF(2^192) proofs both ways."""
+prover gives it; the GF(2^128) and GF(2^256) pins are the golden
+configuration with pow 4 over those fields.  Tier 1 runs only the port;
+the slow tests rerun the JAX prover for the zk, gf128 and gf256 pins and
+cross-verify GF(2^192) proofs both ways."""
 import hashlib
 import secrets
 
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 
 from libiop_tpu_torch.bcs.common import BCSTranscript
-from libiop_tpu_torch.fields.binary import gf64, gf192
+from libiop_tpu_torch.fields.binary import gf64, gf128, gf192, gf256
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
 from libiop_tpu_torch.snark.aurora import (AuroraSnarkParams,
                                            aurora_snark_prover,
@@ -31,13 +33,21 @@ ADDITIVE_GOLDEN_SHA256 = \
 ADDITIVE_GOLDEN_ZK_SHA256 = \
     "ca0f0a1485857e5bc738f1778561db2a2c453c4c94588c26ed6c8cca5b0958dd"
 
-PINS = {False: ADDITIVE_GOLDEN_SHA256, True: ADDITIVE_GOLDEN_ZK_SHA256}
+#: (field, make_zk) -> (pow bits, sha256 of the JAX package's proof): the
+#: golden configuration, and over GF(2^128) and GF(2^256) the same with
+#: pow 4 (the JAX package's proofs, recomputed by the slow test)
+PINS = {("gf64", False): (0, ADDITIVE_GOLDEN_SHA256),
+        ("gf64", True): (0, ADDITIVE_GOLDEN_ZK_SHA256),
+        ("gf128", False): (
+            4, "3e705fdd0e8504f127271914f47ebe20819ce412622848359d5bc8391872b902"),
+        ("gf256", False): (
+            4, "65b29226e28456312cba57a3905ca3f09bfb22f21cf7288b0a8fc727423f315f")}
 
 
-def _config(make_zk):
+def _config(make_zk, pow_bits=0):
     return dict(security_parameter=32, RS_extra_dimensions=2,
-                fri_localization_parameter=1, make_zk=make_zk, pow_bits=0,
-                override_fri_queries=3,
+                fri_localization_parameter=1, make_zk=make_zk,
+                pow_bits=pow_bits, override_fri_queries=3,
                 override_fri_interactive_repetitions=1,
                 override_ldt_instances=1)
 
@@ -51,16 +61,21 @@ def _prove(prover, cs, primary, aux, params, **kw):
                       **kw).serialize()
 
 
-@pytest.mark.parametrize("make_zk", [False, True])
-def test_port_additive_proof_reproduces_pin(make_zk):
-    F = gf64()
+@pytest.mark.parametrize("field,make_zk", [
+    pytest.param("gf64", False, id="False"),
+    pytest.param("gf64", True, id="True"),
+    pytest.param("gf128", False, id="gf128-False"),
+    pytest.param("gf256", False, id="gf256-False")])
+def test_port_additive_proof_reproduces_pin(field, make_zk):
+    F = {"gf64": gf64, "gf128": gf128, "gf256": gf256}[field]()
     cs, primary, aux = generate_r1cs_example(F, 16, 3, 15,
                                              np.random.default_rng(777))
     assert cs.is_satisfied(primary, aux)
-    params = AuroraSnarkParams(**_config(make_zk))
+    pow_bits, want = PINS[field, make_zk]
+    params = AuroraSnarkParams(**_config(make_zk, pow_bits))
     blob = _prove(aurora_snark_prover, cs, primary, aux, params,
                   device="cpu")
-    assert hashlib.sha256(blob).hexdigest() == PINS[make_zk]
+    assert hashlib.sha256(blob).hexdigest() == want
     bad = bytearray(blob)
     bad[32] ^= 1  # first byte of the first Merkle root
     wrong = [primary[0] ^ 1] + list(primary[1:])
@@ -82,6 +97,22 @@ def test_reference_prover_gives_the_zk_pin():
                                     np.random.default_rng(777))
     blob = _prove(jax_prover, cs, primary, aux, JaxParams(**_config(True)))
     assert hashlib.sha256(blob).hexdigest() == ADDITIVE_GOLDEN_ZK_SHA256
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("field", ["gf128", "gf256"])
+def test_reference_prover_gives_the_pow4_pins(field):
+    from libiop_tpu.fields import binary as jax_binary
+    from libiop_tpu.relations.examples import \
+        generate_r1cs_example as jax_generate
+    from libiop_tpu.snark.aurora import AuroraSnarkParams as JaxParams
+    from libiop_tpu.snark.aurora import aurora_snark_prover as jax_prover
+    cs, primary, aux = jax_generate(getattr(jax_binary, field)(), 16, 3, 15,
+                                    np.random.default_rng(777))
+    pow_bits, want = PINS[field, False]
+    blob = _prove(jax_prover, cs, primary, aux,
+                  JaxParams(**_config(False, pow_bits)))
+    assert hashlib.sha256(blob).hexdigest() == want
 
 
 @pytest.mark.slow

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card, at shapes and broadcast patterns the main paths use, over edwards_Fr
 (6-word instantiations) and alt_bn128_Fr (8-word), and the binary-field
-kernels (and K15's and K17's binary routes) over gf64, gf128, gf192 and
-gf256.  Marked gpu: each test
+kernels (and the binary routes of K7, K10, K11, K15, K17 and K21) over
+gf64, gf128, gf192 and gf256.  Marked gpu: each test
 skips without a CUDA device.  Imports nothing of JAX, so it also runs
 on a machine without it:
 
@@ -20,7 +20,9 @@ from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.kernels import LAUNCHES
 from libiop_tpu_torch.kernels.blake2b import blake2b_rows, blake2b_rows_plain
 from libiop_tpu_torch.kernels.batch_inv import batch_inv, batch_inv_plain
-from libiop_tpu_torch.kernels.ell_matvec import ell_matvec, ell_matvec_plain
+from libiop_tpu_torch.kernels.ell_matvec import (ell_matvec,
+                                                 ell_matvec_gf2_plain,
+                                                 ell_matvec_plain)
 from libiop_tpu_torch.kernels.field_addsub import (field_addsub,
                                                    field_addsub_plain)
 from libiop_tpu_torch.kernels.fri_fold import fri_fold, fri_fold_plain
@@ -29,15 +31,18 @@ from libiop_tpu_torch.kernels.fused_dag import (TapeRecorder, fused_dag,
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce
 from libiop_tpu_torch.kernels.mont_mul import mont_mul
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain
-from libiop_tpu_torch.kernels.horner import horner, horner_plain
+from libiop_tpu_torch.kernels.horner import (horner, horner_gf2_plain,
+                                             horner_plain)
 from libiop_tpu_torch.kernels.poseidon import (poseidon_hash_columns,
                                                poseidon_merkle_heap,
                                                poseidon_sponge_plain)
 from libiop_tpu_torch.kernels.p_alpha_m import (group_size, p_alpha_m,
+                                                p_alpha_m_gf2_plain,
                                                 p_alpha_m_plain)
 from libiop_tpu_torch.kernels.place_columns import (place_columns,
                                                     place_columns_plain)
-from libiop_tpu_torch.kernels.powers import powers, powers_plain
+from libiop_tpu_torch.kernels.powers import (powers, powers_gf2_plain,
+                                             powers_plain)
 from libiop_tpu_torch.kernels.row_dot import row_dot, row_dot_plain
 from libiop_tpu_torch.kernels.rs_encode import rs_encode, rs_encode_plain
 from libiop_tpu_torch.kernels.vanishing import (vanishing_divide,
@@ -613,3 +618,106 @@ def test_additive_fft_batched_matches_twin(dev):
                     for r in range(5)]
             assert torch.equal(got, torch.stack(rows, dim=1))
             assert LAUNCHES["additive_fft"] - before == 6 * per_transform
+
+
+def test_ell_matvec_binary_matches_twin(dev):
+    """K7's GF(2^k) instantiation at W 2 and 6 on the example's matrices at
+    2^8, M z and M^T y, and on a plan with a row of only padding."""
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        cs = generate_r1cs_example(Fb, 256, 15, 255,
+                                   np.random.default_rng(3))[0]
+        z = _gf_elems(Fb, (256,), 8, dev)
+        for M in cs.matrices():
+            for seg, src, S in ((M.rows, M.cols, M.num_rows),
+                                (M.cols, M.rows, M.num_cols)):
+                entry, src_flat, K = M._ell_plan(seg, src, S)
+                vals = torch.from_numpy(np.ascontiguousarray(np.concatenate(
+                    [M.vals, np.zeros((Fb.W, 1), np.int32)], axis=1))).to(dev)
+                e = torch.from_numpy(entry).to(dev)
+                s = torch.from_numpy(src_flat).to(dev)
+                before = LAUNCHES["ell_matvec_gf2"]
+                got = ell_matvec(Fb, vals, e, s, z, K)
+                torch.cuda.synchronize()
+                assert LAUNCHES["ell_matvec_gf2"] == before + 1
+                assert torch.equal(got, ell_matvec_gf2_plain(Fb, vals, e, s,
+                                                             z, K)), name
+        vals = _gf_elems(Fb, (5,), 9, dev)
+        vals[:, -1] = 0
+        e = torch.tensor([0, 1, 4, 4, 2, 3], dtype=torch.int64, device=dev)
+        s = torch.tensor([0, 2, 0, 0, 1, 1], dtype=torch.int64, device=dev)
+        z = _gf_elems(Fb, (3,), 10, dev)
+        got = ell_matvec(Fb, vals, e, s, z, 2)
+        assert not got[:, 1].any()
+        assert torch.equal(got, ell_matvec_gf2_plain(Fb, vals, e, s, z, 2))
+
+
+def test_horner_binary_matches_twin(dev):
+    """K10's GF(2^k) instantiation at W 2 and 6, one launch at d <= 256,
+    two above."""
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        for d, k in ((1, 3), (37, 5), (256, 8), (257, 4), (3000, 64)):
+            coeffs = _gf_elems(Fb, (d,), d, dev)
+            x = _gf_elems(Fb, (k,), d + 1, dev)
+            before = LAUNCHES["horner_gf2"]
+            got = horner(Fb, coeffs, x)
+            torch.cuda.synchronize()
+            assert LAUNCHES["horner_gf2"] == before + (1 if d <= 256 else 2)
+            assert torch.equal(got, horner_gf2_plain(Fb, coeffs, x)), \
+                (name, d)
+
+
+def test_powers_binary_matches_twin(dev):
+    """K11's GF(2^k) instantiation at W 2 and 6, with and without a
+    start, from one thread to the 2^17-thread walk."""
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        x = _gf_elems(Fb, (1,), 50, dev).reshape(Fb.W)
+        start = _gf_elems(Fb, (1,), 51, dev).reshape(Fb.W)
+        for n in (1, 2, 17, 255, 1 << 12, (1 << 21) + 3):
+            for s in (None, start):
+                before = LAUNCHES["powers_gf2"]
+                got = powers(Fb, x, n, s)
+                torch.cuda.synchronize()
+                assert LAUNCHES["powers_gf2"] == before + 1
+                assert torch.equal(got, powers_gf2_plain(Fb, x, n, s)), \
+                    (name, n)
+
+
+def test_p_alpha_m_binary_matches_twin(dev):
+    """K21's GF(2^k) instantiation at W 2 and 6: the three matrices of an
+    example at 2^12 with a permuted placement and sentinel slots, and a
+    dense column (32 lanes a slot)."""
+    for name in ("gf64", "gf192"):
+        Fb = getattr(binary, name)()
+        n = 1 << 12
+        cs, _, _ = generate_r1cs_example(Fb, n, 15, n - 1,
+                                         np.random.default_rng(0))
+        mats = list(cs.matrices())
+        plans = [M.transpose_csr_device(dev) for M in mats]
+        S = mats[0].num_cols
+        inv = torch.from_numpy(np.random.default_rng(3).permutation(S + 64))
+        inv = torch.where(inv >= S, torch.full_like(inv, S), inv).to(dev)
+        p = _gf_elems(Fb, (n,), 4, dev)
+        r = Fb.random_ints(3, np.random.default_rng(5))
+        before = LAUNCHES["p_alpha_m_gf2"]
+        got = p_alpha_m(Fb, plans, p, r, inv, S)
+        torch.cuda.synchronize()
+        assert LAUNCHES["p_alpha_m_gf2"] == before + 1
+        assert torch.equal(got, p_alpha_m_gf2_plain(Fb, plans, p, r, inv, S))
+        S = 1 << 10
+        rng = np.random.default_rng(11)
+        rows = np.concatenate([np.arange(n), rng.integers(0, n, 3 * n)])
+        cols = np.concatenate([np.zeros(n, np.int64),
+                               rng.integers(1, S, 3 * n)])
+        mats = [SparseMatrix(Fb, n, S, rows, cols,
+                             Fb.from_ints_np(Fb.random_ints(len(rows), rng)))
+                for _ in range(2)]
+        plans = [M.transpose_csr_device(dev) for M in mats]
+        assert group_size(plans) == 32
+        inv = torch.arange(S, dtype=torch.int64).flip(0).to(dev)
+        r = Fb.random_ints(2, rng)
+        got = p_alpha_m(Fb, plans, p, r, inv, S)
+        assert torch.equal(got, p_alpha_m_gf2_plain(Fb, plans, p, r, inv,
+                                                    S)), name
