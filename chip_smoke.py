@@ -63,7 +63,19 @@ Phases (any failure exits non-zero and prints no result line):
     gf64 Fractal and Ligero pins, phase 12); the binary paths of phases
     9-13 must launch them; phase 4 also proves the JAX package's Fractal
     over GF(2^64) (tests/test_additive_aurora.py:139-157) to its pins;
-14. print the card's name and power limit, the kernels JSON line, then the
+14. the FRI SNARK (fri_snark_prover / fri_snark_verifier) over edwards_Fr
+    with BLAKE2b: security 128, RS extra 2, localization parameter 2, 10
+    queries, 1 interactive repetition, four oracles, pow 0, tested degree
+    2^(log_n + 2) (codeword 2^(log_n + 4), 2^20 by default), prover rng
+    default_rng(0): cold and warm prove, verify, argument bytes, peak
+    memory, the device's busy share; a flipped root byte is rejected;
+15. the instrument CLI (libiop_tpu_torch.profiling.instrument) in process
+    on the card for aurora, fractal, ligero and fri at 2^8; every line
+    accepted, the fri run prints its transcript report;
+16. K22 through BivariateLagrange.evaluations_over with |S| = 2^16 and
+    |L| = 2^20 disjoint, x off L and on L, over edwards_Fr, alt_bn128_Fr,
+    GF(2^192) and GF(2^64): one launch a call, equal to its twin, timed;
+17. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -112,6 +124,8 @@ from libiop_tpu_torch.kernels.batch_inv import (batch_inv,  # noqa: E402
                                                 batch_inv_plain)
 from libiop_tpu_torch.kernels.blake2b import (blake2b_rows,  # noqa: E402
                                               blake2b_rows_plain, merkle_heap)
+from libiop_tpu_torch.kernels.bivariate import (  # noqa: E402
+    bivariate_evals, bivariate_evals_plain)
 from libiop_tpu_torch.kernels.ell_matvec import (  # noqa: E402
     ell_matvec, ell_matvec_gf2_plain, ell_matvec_plain)
 from libiop_tpu_torch.kernels.field_addsub import (field_addsub,  # noqa: E402
@@ -149,6 +163,11 @@ from libiop_tpu_torch.snark.fractal import (  # noqa: E402
 from libiop_tpu_torch.snark.ligero import (LigeroSnarkParams,  # noqa: E402
                                            ligero_snark_prover,
                                            ligero_snark_verifier)
+from libiop_tpu_torch.snark.fri import (FRISnarkParams,  # noqa: E402
+                                        fri_snark_prover, fri_snark_verifier)
+from libiop_tpu_torch.algebra.bivariate import (  # noqa: E402
+    BivariateLagrange, index_of_element)
+from libiop_tpu_torch.profiling import instrument  # noqa: E402
 from libiop_tpu_torch.utils.profiling import PROFILER  # noqa: E402
 
 #: sha256 of the golden transcript, pinned by the JAX package's own test
@@ -1205,39 +1224,50 @@ _BINARY_KERNELS = {"gf2k_mul", "additive_fft", "linearized",
                    "fri_fold_additive", "ell_matvec_gf2", "horner_gf2",
                    "powers_gf2", "p_alpha_m_gf2"}
 _FRACTAL_KERNELS = {"p_alpha_m", "p_alpha_m_gf2"}
+#: K22 (the bivariate Lagrange evaluations) is on no SNARK's path: phase 16
+#: drives it through BivariateLagrange.evaluations_over
+_BIVARIATE_KERNELS = {"bivariate", "bivariate_gf2"}
 _NOT_ON_PATH = {
     "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"}
-    | _BINARY_KERNELS | _FRACTAL_KERNELS,
+    | _BINARY_KERNELS | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
     "aurora_poseidon": {"blake2b_rows", "lazy_reduce", "rs_encode",
-                        "row_dot"} | _BINARY_KERNELS | _FRACTAL_KERNELS,
+                        "row_dot"} | _BINARY_KERNELS | _FRACTAL_KERNELS
+    | _BIVARIATE_KERNELS,
     "ligero": {"poseidon", "lazy_reduce", "fri_fold", "fused_dag",
                "vanishing", "place_columns", "batch_inv"} | _BINARY_KERNELS
-    | _FRACTAL_KERNELS,
+    | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
     # over a binary field K16-K19 and the GF(2^k) instantiations of K7,
     # K8, K10 and K11 take the prime kernels' places; the inverses are K16
     "aurora_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                       "lazy_reduce", "ell_matvec", "poseidon", "horner",
                       "powers", "vanishing", "rs_encode", "row_dot",
-                      "batch_inv"} | _FRACTAL_KERNELS,
+                      "batch_inv"} | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
     # Fractal encodes no rows (no Ligero), evaluates no polynomial by
     # Horner (its lincheck's p_alpha is a closed form) and reduces no lazy
     # sum outside its kernels
     "fractal": {"poseidon", "lazy_reduce", "rs_encode", "row_dot", "horner"}
-    | _BINARY_KERNELS,
+    | _BINARY_KERNELS | _BIVARIATE_KERNELS,
     # Fractal over GF(2^k): the binary kernels of Aurora's path but K10
     # (its lincheck's p_alpha is a closed form), and K21's GF(2^k)
     # instantiation
     "fractal_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                        "lazy_reduce", "ell_matvec", "poseidon", "horner",
                        "powers", "vanishing", "rs_encode", "row_dot",
-                       "batch_inv", "p_alpha_m", "horner_gf2"},
+                       "batch_inv", "p_alpha_m", "horner_gf2"}
+    | _BIVARIATE_KERNELS,
     # Ligero over GF(2^k): K16 products, K17 row encodes, K15 row sums,
     # BLAKE2b trees; its LDT is the direct one (no fold, no DAG)
     "ligero_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                       "lazy_reduce", "ell_matvec", "fused_dag", "poseidon",
                       "horner", "powers", "vanishing", "place_columns",
                       "rs_encode", "linearized", "fri_fold_additive",
-                      "batch_inv"} | _FRACTAL_KERNELS}
+                      "batch_inv"} | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
+    # the FRI SNARK: random codewords (K2 with K1's shift and K11's tables),
+    # one BLAKE2b tree a round (K3) and the folds (K4); no constraint
+    # system, so no sparse product, DAG, vanishing polynomial or inverse
+    "fri_snark": set(kernels.LAUNCHES) - {"mont_mul", "ntt_stage",
+                                          "blake2b_rows", "fri_fold",
+                                          "powers"}}
 
 AURORA = (aurora_snark_prover, aurora_snark_verifier)
 LIGERO = (ligero_snark_prover, ligero_snark_verifier)
@@ -1797,6 +1827,182 @@ def check_gf2_recorded(F, calls):
     return rows
 
 
+def fri_snark_params(log_degree):
+    """The FRI-isolation configuration of the instrument's `--snark fri`
+    (instrument.py run_fri: RS extra 2, BLAKE2b, 1 interactive repetition,
+    10 queries, pow 0) with security 128, localization parameter 2 and four
+    oracles, tested degree 2^log_degree (codeword 2^(log_degree + 2))."""
+    return FRISnarkParams(security_parameter=128,
+                          codeword_domain_dim=log_degree + 2,
+                          RS_extra_dimensions=2, localization_parameter=2,
+                          num_oracles=4, hash_name="blake2b", pow_bits=0,
+                          override_fri_queries=10,
+                          override_fri_interactive_repetitions=1)
+
+
+def fri_path(F, dev, params, off_path):
+    """Phase 14: the FRI SNARK (fri_snark_prover / fri_snark_verifier) on
+    the card, prover rng default_rng(0): a cold prove from dropped device
+    tables, verify, a proof with one Merkle root byte flipped (rejected),
+    a warm prove (the same bytes), and further proves under torch.profiler
+    and cProfile.  Every kernel outside ``off_path`` must be launched in the
+    counted run (cold prove and verify); returns its launch counts."""
+    rng = lambda: np.random.default_rng(0)  # noqa: E731
+    PROFILER.sync = True
+    domains.clear_device_tables()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    with no_twin_on_cuda():
+        kernels.reset_launch_counts()
+        t0 = time.time()
+        proof = fri_snark_prover(F, params, rng=rng(), device=dev)
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+        launches_prove = dict(kernels.LAUNCHES)
+        blob = proof.serialize()
+        t0 = time.time()
+        ok = fri_snark_verifier(F, BCSTranscript.deserialize(blob), params,
+                                device=dev)
+        torch.cuda.synchronize()
+        verify_s = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    bad = BCSTranscript.deserialize(blob)
+    key = sorted(bad.mt_roots)[0]
+    root = bytearray(bad.mt_roots[key])
+    root[0] ^= 1
+    bad.mt_roots[key] = bytes(root)
+    tampered_ok = fri_snark_verifier(F, bad, params, device=dev)
+    PROFILER.sync = False
+    t0 = time.time()
+    blob2 = fri_snark_prover(F, params, rng=rng(), device=dev).serialize()
+    torch.cuda.synchronize()
+    warm_prove_s = time.time() - t0
+    device_time = device_time_breakdown(
+        lambda: fri_snark_prover(F, params, rng=rng(), device=dev))
+    host_time = host_time_breakdown(
+        lambda: fri_snark_prover(F, params, rng=rng(), device=dev))
+    log(json.dumps({"stage": "fri_snark", "field": F.name,
+                    "hash": params.hash_name,
+                    "codeword_log": params.codeword_domain_dim,
+                    "num_oracles": params.num_oracles,
+                    "prove_s": prove_s, "warm_prove_s": warm_prove_s,
+                    "verify_s": verify_s, "verified": ok,
+                    "flipped_root_rejected": not tampered_ok,
+                    "argument_bytes": len(blob),
+                    "same_bytes_second_prove": blob2 == blob,
+                    "max_memory_allocated": peak,
+                    "peak_memory_of_path": peak - held, "launches": launches,
+                    "launches_prove": launches_prove,
+                    "warm_prove_device_time": device_time,
+                    "warm_prove_host_time": host_time}))
+    if not ok:
+        raise AssertionError("fri_snark proof rejected")
+    if tampered_ok:
+        raise AssertionError("fri_snark: proof with a flipped root accepted")
+    if blob2 != blob:
+        raise AssertionError("fri_snark: second prove gave other bytes")
+    for name, count in launches.items():
+        if count <= 0 and name not in off_path:
+            raise AssertionError(f"kernel {name} was not launched on fri_snark")
+    return launches
+
+
+def instrument_sweep(log_n):
+    """Phase 15: the instrument CLI in process on the card, once per
+    --snark choice at 2^log_n (its defaults: security 64, RS extra 3, FRI
+    localization 2), with --detailed for fri; every line must say
+    accepted: true, and the fri run must print the transcript report."""
+    import io
+    for snark in ("aurora", "fractal", "ligero", "fri"):
+        argv = ["--device", "cuda", "--snark", snark, "--log_n_min",
+                str(log_n), "--log_n_max", str(log_n)]
+        if snark == "fri":
+            argv.append("--detailed")
+        buf = io.StringIO()
+        with no_twin_on_cuda(), contextlib.redirect_stdout(buf):
+            instrument.main(argv)
+        out = buf.getvalue().splitlines()
+        result = json.loads(out[-1])
+        log(json.dumps({"stage": "instrument", **result}))
+        if result["accepted"] is not True or result["device"] != "cuda":
+            raise AssertionError(f"instrument --snark {snark}: {result}")
+        if snark == "fri":
+            report = [ln for ln in out[:-1] if ln.strip()]
+            for ln in report:
+                log(f"  {ln}")
+            if not any(ln.startswith("IOP bytes:") for ln in report):
+                raise AssertionError("instrument --detailed printed no report")
+
+
+#: K22's cell: S of 2^16, L of 2^20 disjoint from S (a coset of the
+#: multiplicative generator, or a subspace shifted by x^40)
+BIVARIATE_LOG_S, BIVARIATE_LOG_L = 16, 20
+#: the instrument sweep's size (phase 15)
+INSTRUMENT_LOG_N = 8
+
+
+def check_bivariate(F, dev, paths, log_s=BIVARIATE_LOG_S,
+                    log_l=BIVARIATE_LOG_L):
+    """Phase 16: BivariateLagrange(S).evaluations_over(x, L) on the card
+    with x off L and x on L (the diagonal), from built device tables, with
+    the launch counts set to 0 just before and read just after (one K22
+    launch a call, no twin); each output against K22's plain twin on the
+    same tables (exact), then K22 timed on the diagonal case.  Bound: the
+    tables of y and Z_S(y) read once and the output written once; a
+    subtraction for the numerator and one for the denominator, three
+    products an element for the batched inverse (Montgomery's trick) and
+    one by the numerator."""
+    binary = F.kind == "additive"
+    shift = (1 << 40) if binary else F.multiplicative_generator
+    S = generic.make_domain(F, log_s)
+    L = generic.make_domain(F, log_l, shift=shift)
+    f = BivariateLagrange(S)
+    ys = L.elements(dev)
+    zy = generic.vanishing_evals_over_any(S, L, dev)
+    points = {"outside": F.random_ints(1, np.random.default_rng(22))[0],
+              "inside": L.element_by_index_int(L.order // 3)}
+    label = f"bivariate_{F.name}"
+    name = "bivariate_gf2" if binary else "bivariate"
+    torch.cuda.synchronize()
+    with no_twin_on_cuda():
+        kernels.reset_launch_counts()
+        outs = {tag: f.evaluations_over(x, L, dev)
+                for tag, x in points.items()}
+        torch.cuda.synchronize()
+        paths[label] = dict(kernels.LAUNCHES)
+    if paths[label][name] != len(points):
+        raise AssertionError(f"{label}: {paths[label][name]} K22 launches "
+                             f"for {len(points)} calls")
+    err, plain_ms = 0, None
+    for tag, x in points.items():
+        args = (x, generic.vanishing_eval_int(S, x),
+                generic.vanishing_derivative_int(S, x),
+                index_of_element(L, x))
+        want, plain_ms = timed_once(
+            lambda: bivariate_evals_plain(F, ys, zy, *args))
+        err = max(err, max_abs_err(outs[tag], want))
+        if tag == "inside" and args[3] != L.order // 3:
+            raise AssertionError(f"{label}: x on L found at {args[3]}")
+    ms = time_ms(lambda: bivariate_evals(F, ys, zy, *args))
+    n, eb = L.order, elem_bytes(F)
+    ops = (4 * gf_mul_ops(F.W) + 2 * F.W) if binary else \
+        (4 * mont_ops(F) + 2 * addsub_ops(F))
+    bms, by = bound_ms(3 * n * eb, n * ops)
+    r = dict(name=name, route="cuda",
+             source="libiop_tpu_torch/csrc/bivariate.cu",
+             replaces="libiop_tpu/algebra/bivariate.py:72", max_abs_err=err,
+             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             library_ms=None, field=F.name,
+             shape=f"|S| 2^{log_s}, |L| 2^{log_l}, x off and on L",
+             paths=(label,))
+    report(r)
+    return [r]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--log_n", type=int, default=16)
@@ -1942,7 +2148,20 @@ def main():
         rows += check_gf2_recorded(Fx, calls[Fx.name])
     del calls
 
-    log("phase 14: results")
+    log(f"phase 14: the FRI SNARK at degree 2^{args.log_n + 2}, codeword "
+        f"2^{args.log_n + 4}, four oracles")
+    paths["fri_snark"] = fri_path(F, dev, fri_snark_params(args.log_n + 2),
+                                  _NOT_ON_PATH["fri_snark"])
+
+    log("phase 15: the instrument sweep on the card")
+    instrument_sweep(INSTRUMENT_LOG_N)
+
+    log(f"phase 16: K22, the bivariate Lagrange evaluations, |S| "
+        f"2^{BIVARIATE_LOG_S}, |L| 2^{BIVARIATE_LOG_L}")
+    for Fx in (F, Fb, Fg, Fl):
+        rows += check_bivariate(Fx, dev, paths)
+
+    log("phase 17: results")
     for r in rows:
         # the row's main path: the first of its field's paths (zk first),
         # or of the paths it names, that launched it

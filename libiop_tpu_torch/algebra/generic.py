@@ -83,6 +83,15 @@ def vanishing_eval_int(H, x: int) -> int:
     return F.sub_ints(F.pow_int(x, H.order), F.pow_int(H.shift, H.order))
 
 
+def vanishing_derivative_int(H, x: int) -> int:
+    """Z_H'(x) at any point: h x^(h-1) over a coset; the constant eps over
+    a subspace."""
+    F = H.field
+    if is_additive(H):
+        return linearized_vanishing(H).epsilon
+    return F.mul_ints(H.order % F.p, F.pow_int(x, H.order - 1))
+
+
 def place_columns(values: torch.Tensor, positions, out_size: int):
     """out[..., positions[k]] = values[..., k], zeros elsewhere, as a gather
     through the memoized inverse placement, whose sentinel nv marks a zero

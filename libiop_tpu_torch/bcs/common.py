@@ -278,3 +278,53 @@ class BCSTranscript:
                 salts = [get_bytes() for _ in range(ns)]
             t.mt_proofs[(rnd, dom)] = MTProof(positions, blocks, aux, salts)
         return t
+
+    def argument_size_bytes(self) -> int:
+        return len(self.serialize())
+
+    def detailed_report(self) -> dict:
+        """Per-tree cost breakdown: IOP bytes (revealed oracle values and
+        prover messages) against BCS overhead (roots, auxiliary digests,
+        salts, the pow nonce); the reference's
+        print_detailed_transcript_data (bcs_common.tcc:698-827)."""
+        per_tree = {}
+        iop_bytes = 0
+        bcs_bytes = 0
+        for key, prf in sorted(self.mt_proofs.items()):
+            leaf_bytes = sum(len(b) for b in prf.leaf_blocks)
+            digest_bytes = sum(len(d) for d in prf.aux_digests)
+            salt_bytes = sum(len(s) for s in (prf.salts or []))
+            root_bytes = len(self.mt_roots.get(key, b""))
+            per_tree[key] = {
+                "revealed_leaves": len(prf.positions),
+                "leaf_bytes": leaf_bytes,
+                "aux_digests": len(prf.aux_digests),
+                "digest_bytes": digest_bytes + root_bytes,
+                "salt_bytes": salt_bytes,
+            }
+            iop_bytes += leaf_bytes
+            bcs_bytes += digest_bytes + salt_bytes + root_bytes
+        msg_bytes = sum(len(vals) * self.elem_bytes
+                        for vals in self.prover_messages.values())
+        iop_bytes += msg_bytes
+        bcs_bytes += 8  # pow nonce
+        return {
+            "per_tree": per_tree,
+            "prover_message_bytes": msg_bytes,
+            "iop_bytes": iop_bytes,
+            "bcs_overhead_bytes": bcs_bytes,
+            "total_serialized_bytes": self.argument_size_bytes(),
+        }
+
+    def print_detailed_report(self):
+        rep = self.detailed_report()
+        print(f"{'tree (round,domain)':>22} | leaves | leaf B | aux | "
+              "digest B | salt B")
+        for key, row in rep["per_tree"].items():
+            print(f"{str(key):>22} | {row['revealed_leaves']:6d} | "
+                  f"{row['leaf_bytes']:6d} | {row['aux_digests']:3d} | "
+                  f"{row['digest_bytes']:8d} | {row['salt_bytes']:6d}")
+        print(f"prover messages: {rep['prover_message_bytes']} B")
+        print(f"IOP bytes: {rep['iop_bytes']}  BCS overhead: "
+              f"{rep['bcs_overhead_bytes']}  total: "
+              f"{rep['total_serialized_bytes']}")

@@ -127,3 +127,10 @@ def validate_multi_proof(hasher, root: bytes, num_leaves: int,
     if ai != len(aux):
         return False
     return node_ids == [1] and digests[1] == root
+
+
+def count_proof_hashes(num_leaves: int, positions: Sequence[int]) -> int:
+    """Number of auxiliary digests a pruned proof of the leaf positions
+    holds (merkle_tree.tcc:486+ role; the FRI argument-size optimizer's
+    count)."""
+    return len(MerkleTree.aux_node_ids(num_leaves, positions))

@@ -6,14 +6,19 @@
 bits, same layout); ``r1cs_from_reference`` rebuilds a constraint system
 over a given field from the reference's ``R1CS.constraints`` int triples;
 ``fractal_index_from_reference`` turns the reference's Fractal prover index
-into the port's.
+into the port's; ``domain_from_reference`` and
+``fri_parameters_from_reference`` rebuild a domain and an FRIParameters
+over the port's field from the reference's ints.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .algebra.domains import MultiplicativeCoset
+from .algebra.subspace import AffineSubspace
 from .bcs.common import DeviceLeafBlocks
+from .protocols.fri import FRIParameters
 from .relations.r1cs import R1CS
 
 
@@ -63,3 +68,28 @@ def fractal_index_from_reference(F, artifact, device="cpu"):
         _digest_heap(nodes).to(device))
         for key, (blocks, nodes) in mt_data.items()}
     return evals, vecs, trees
+
+
+def domain_from_reference(F, domain):
+    """The port's domain over F with the reference domain's ints: a
+    multiplicative coset (dim, shift, generator) or an affine subspace
+    (dim, shift, basis)."""
+    if domain.kind == "affine_subspace":
+        return AffineSubspace(F, domain.dim, int(domain.shift),
+                              [int(b) for b in domain.basis])
+    return MultiplicativeCoset(F, domain.dim, int(domain.shift),
+                               int(domain.g))
+
+
+def fri_parameters_from_reference(F, params) -> FRIParameters:
+    """The port's FRIParameters over F with the reference parameters'
+    degree bound, dimensions, localization vector and repetition counts
+    (the counts as the reference holds them, overrides included)."""
+    out = FRIParameters.__new__(FRIParameters)
+    out.F = F
+    for name in ("soundness_type", "poly_degree_bound", "codeword_domain_dim",
+                 "RS_extra_dimensions", "effective_proximity",
+                 "num_query_repetitions", "num_interactive_repetitions"):
+        setattr(out, name, getattr(params, name))
+    out.localization_parameters = list(params.localization_parameters)
+    return out

@@ -11,6 +11,7 @@ import torch
 from . import (LAUNCHES, build, check_limbs, field_words, ptr,
                raise_on_error, stream_ptr)
 from ..fields.limbs import mul_plain
+from .gf2k_mul import gf2k_mul_plain
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_void_p,
@@ -22,7 +23,14 @@ def batch_inv_plain(F, a: torch.Tensor, c: Optional[torch.Tensor]
     """c * a^-1 with 0 mapping to 0, the reference's a^(p-2), by
     Montgomery's trick over a product tree: pairwise products up to the
     root (zeros and padding enter as 1), the root inverted as a host int,
-    then each node's inverse times its sibling down to the leaves."""
+    then each node's inverse times its sibling down to the leaves.  Over
+    GF(2^k) (words) the same trick runs on K16's plain products: K22's
+    twin uses it there."""
+    binary = F.kind == "additive"
+
+    def mul(u, v):
+        return (gf2k_mul_plain if binary else mul_plain)(F, u, v)
+
     shape = a.shape
     x = a.reshape(F.L, -1)
     n = x.shape[1]
@@ -33,22 +41,24 @@ def batch_inv_plain(F, a: torch.Tensor, c: Optional[torch.Tensor]
                        one.expand(F.L, width - n)], dim=1)
     levels = [level]
     while level.shape[1] > 1:
-        level = mul_plain(F, level[:, 0::2].contiguous(),
-                          level[:, 1::2].contiguous())
+        level = mul(level[:, 0::2].contiguous(), level[:, 1::2].contiguous())
         levels.append(level)
-    unit = torch.zeros((F.L, 1), dtype=torch.int32, device=x.device)
-    unit[0] = 1  # the canonical limbs of 1: a product by it leaves Montgomery
-    root = mul_plain(F, level, unit)[:, 0].tolist()
-    value = sum(limb << (16 * i) for i, limb in enumerate(root))
-    inv = F.from_ints([pow(value, F.p - 2, F.p)], x.device)
+    if binary:
+        inv = F.from_ints([F.inv_int(int(F.to_ints(level)[0]))], x.device)
+    else:
+        unit = torch.zeros((F.L, 1), dtype=torch.int32, device=x.device)
+        unit[0] = 1  # the canonical limbs of 1: a product by it leaves
+        root = mul(level, unit)[:, 0].tolist()  # Montgomery form
+        value = sum(limb << (16 * i) for i, limb in enumerate(root))
+        inv = F.from_ints([pow(value, F.p - 2, F.p)], x.device)
     for children in reversed(levels[:-1]):
         left = children[:, 0::2].contiguous()
         right = children[:, 1::2].contiguous()
-        inv = torch.stack([mul_plain(F, inv, right), mul_plain(F, inv, left)],
+        inv = torch.stack([mul(inv, right), mul(inv, left)],
                           dim=2).reshape(F.L, -1)
     out = torch.where(zero, torch.zeros_like(x), inv[:, :n])
     if c is not None:
-        out = mul_plain(F, out, c.reshape(F.L, -1))
+        out = mul(out, c.reshape(F.L, -1))
     return out.reshape(shape)
 
 

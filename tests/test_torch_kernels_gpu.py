@@ -1,8 +1,9 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card, at shapes and broadcast patterns the main paths use, over edwards_Fr
 (6-word instantiations) and alt_bn128_Fr (8-word), and the binary-field
-kernels (and the binary routes of K7, K10, K11, K15, K17 and K21) over
-gf64, gf128, gf192 and gf256.  Marked gpu: each test
+kernels (and the binary routes of K7, K10, K11, K15, K17, K21 and K22) over
+gf64, gf128, gf192 and gf256; and the FRI SNARK on the card, whose bytes
+are the CPU path's.  Marked gpu: each test
 skips without a CUDA device.  Imports nothing of JAX, so it also runs
 on a machine without it:
 
@@ -20,6 +21,8 @@ from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr
 from libiop_tpu_torch.kernels import LAUNCHES
 from libiop_tpu_torch.kernels.blake2b import blake2b_rows, blake2b_rows_plain
 from libiop_tpu_torch.kernels.batch_inv import batch_inv, batch_inv_plain
+from libiop_tpu_torch.kernels.bivariate import (bivariate_evals,
+                                                bivariate_evals_plain)
 from libiop_tpu_torch.kernels.ell_matvec import (ell_matvec,
                                                  ell_matvec_gf2_plain,
                                                  ell_matvec_plain)
@@ -53,6 +56,14 @@ from libiop_tpu_torch.protocols.fri import _fold_rows
 from libiop_tpu_torch.relations.examples import generate_r1cs_example
 from libiop_tpu_torch.relations.sparse import SparseMatrix
 from libiop_tpu_torch.algebra import subspace
+from libiop_tpu_torch.algebra.bivariate import (BivariateLagrange,
+                                                index_of_element)
+from libiop_tpu_torch.algebra.generic import (make_domain,
+                                              vanishing_derivative_int,
+                                              vanishing_eval_int,
+                                              vanishing_evals_over_any)
+from libiop_tpu_torch.snark.fri import (FRISnarkParams, fri_snark_prover,
+                                        fri_snark_verifier)
 from libiop_tpu_torch.fields import binary
 from libiop_tpu_torch.kernels.additive_fft import (additive_fft,
                                                    additive_fft_plain)
@@ -721,3 +732,76 @@ def test_p_alpha_m_binary_matches_twin(dev):
         got = p_alpha_m(Fb, plans, p, r, inv, S)
         assert torch.equal(got, p_alpha_m_gf2_plain(Fb, plans, p, r, inv,
                                                     S)), name
+
+
+
+def _bivariate_domains(Fx, log_s, log_l):
+    """S and a domain L disjoint from it (a coset of the generator, or a
+    subspace shifted off S)."""
+    if Fx.kind == "additive":
+        return make_domain(Fx, log_s), make_domain(Fx, log_l, shift=1 << 40)
+    return make_domain(Fx, log_s), make_domain(
+        Fx, log_l, shift=Fx.multiplicative_generator)
+
+
+def test_bivariate_matches_twin(dev):
+    """K22 through BivariateLagrange.evaluations_over over both prime
+    fields (6 and 8 words) and every binary width, one launch a call, with
+    x off L and on L (the diagonal), at |L| of 32, 2048 and 8192 (part of a
+    block of 2048, one block, four), equal to its twin and, on a sample,
+    to the host-int definition; then a part-filled last block."""
+    for name in sorted(FIELDS) + list(BINARY):
+        _check_bivariate(dev, name)
+
+
+def _check_bivariate(dev, name):
+    Fx = FIELDS[name]() if name in FIELDS else getattr(binary, name)()
+    counter = "bivariate_gf2" if Fx.kind == "additive" else "bivariate"
+    for log_s, log_l in ((2, 5), (4, 11), (6, 13)):
+        S, L = _bivariate_domains(Fx, log_s, log_l)
+        f = BivariateLagrange(S)
+        ys = L.elements(dev)
+        zy = vanishing_evals_over_any(S, L, dev)
+        x_off = Fx.random_ints(1, np.random.default_rng(log_l))[0]
+        for x in (x_off, L.element_by_index_int(L.order - 3)):
+            before = LAUNCHES[counter]
+            got = f.evaluations_over(x, L, dev)
+            torch.cuda.synchronize()
+            assert LAUNCHES[counter] == before + 1
+            want = bivariate_evals_plain(
+                Fx, ys, zy, x, vanishing_eval_int(S, x),
+                vanishing_derivative_int(S, x), index_of_element(L, x))
+            assert torch.equal(got, want), (name, log_l, x)
+            k = min(40, L.order)
+            vals = Fx.to_ints(got[:, -k:])
+            for i in range(L.order - k, L.order):
+                assert int(vals[i - L.order + k]) == \
+                    f.evaluation_at_point_int(
+                        x, L.element_by_index_int(i)), (name, i)
+    # a part-filled block: n not a multiple of the block's 2048 elements
+    n = 2048 + 77
+    ys, zy = ys[:, :n].contiguous(), zy[:, :n].contiguous()
+    args = (x_off, 5, 7, 100)
+    got = bivariate_evals(Fx, ys, zy, *args)
+    assert torch.equal(got, bivariate_evals_plain(Fx, ys, zy, *args)), name
+
+
+def test_fri_snark_on_the_card_gives_the_cpu_bytes(dev):
+    """The FRI SNARK (K2 encodes, K3 tree, K4 folds) proves on the card the
+    bytes of the CPU path (tests/test_torch_fri_snark.py's edwards_Fr pin)
+    and its verifier accepts them."""
+    import hashlib
+    Fx = edwards_fr()
+    params = FRISnarkParams(security_parameter=32, codeword_domain_dim=8,
+                            RS_extra_dimensions=2, localization_parameter=1,
+                            num_oracles=2, pow_bits=2, override_fri_queries=4,
+                            override_fri_interactive_repetitions=1)
+    before = dict(LAUNCHES)
+    proof = fri_snark_prover(Fx, params, rng=np.random.default_rng(3),
+                             device=dev)
+    for k in ("ntt_stage", "blake2b_rows", "fri_fold"):
+        assert LAUNCHES[k] > before[k], k
+    blob = proof.serialize()
+    assert hashlib.sha256(blob).hexdigest() == \
+        "bbd18bb0e21d5088443eca6e58e6a58d41feb9b038fd30ddce84027464e86626"
+    assert fri_snark_verifier(Fx, proof, params, device=dev)
