@@ -75,7 +75,24 @@ Phases (any failure exits non-zero and prints no result line):
 16. K22 through BivariateLagrange.evaluations_over with |S| = 2^16 and
     |L| = 2^20 disjoint, x off L and on L, over edwards_Fr, alt_bn128_Fr,
     GF(2^192) and GF(2^64): one launch a call, equal to its twin, timed;
-17. print the card's name and power limit, the kernels JSON line, then the
+17. the four-step NTT: ShardedNTT at codeword 2^20 over edwards_Fr and
+    alt_bn128_Fr on in-process meshes of D = 1, 2, 4 and 8 shards on the
+    card, shift 1 and a coset shift, equal to fft (K2) byte for byte; K23's
+    four launch shapes against their twins; ShardedNTT's ms beside fft's;
+18. the sharded Aurora prover: phase 5's configuration under
+    codeword_sharding_context of a 4-shard mesh on the card gives phase
+    5's bytes, takes the four-step route and launches every K23 shape; the
+    golden configuration under the mesh gives GOLDEN_SHA256; K23 against
+    its twins on the prove's largest calls;
+19. the same proof across two processes on the card (this script with
+    --mesh_rank, backend gloo, a file:// rendezvous, both ranks on cuda:0,
+    killed after a timeout): assert_same_on_all_processes holds and the
+    digest is phase 5's; with two GPUs also backend nccl;
+20. K24 (the LDT combination): launched on ligero, ligero_zk and
+    ligero_gf64, equal to its twin on their largest calls (and over
+    alt_bn128_Fr at the edwards shape); the Ligero pins of phase 4 proven
+    again with K24;
+21. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -88,6 +105,7 @@ import os
 import secrets
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -150,6 +168,14 @@ from libiop_tpu_torch.kernels.vanishing import (  # noqa: E402
     vanishing_divide, vanishing_divide_plain, vanishing_multiply,
     vanishing_multiply_plain)
 from libiop_tpu_torch.algebra.domains import MultiplicativeCoset  # noqa: E402
+from libiop_tpu_torch.algebra.fft import SHARD_ROUTES, fft  # noqa: E402
+from libiop_tpu_torch.kernels import four_step as k23  # noqa: E402
+from libiop_tpu_torch.kernels.ldt_combine import (  # noqa: E402
+    ldt_combine, ldt_combine_plain)
+from libiop_tpu_torch.parallel.mesh import (  # noqa: E402
+    codeword_sharding_context, make_codeword_mesh)
+from libiop_tpu_torch.parallel.shard_ntt import ShardedNTT  # noqa: E402
+from libiop_tpu_torch.protocols import ldt_reducer  # noqa: E402
 from libiop_tpu_torch.protocols import common, fri, ligero  # noqa: E402
 from libiop_tpu_torch.protocols import holographic_lincheck  # noqa: E402
 from libiop_tpu_torch.relations import sparse  # noqa: E402
@@ -1133,7 +1159,17 @@ _RECORDED = [
     (subspace, "_k17", "additive_fft_batched",
      lambda F, S, tw, sums, inverse=False: S.numel() if S.ndim == 3 else -1),
     (sparse, "ell_matvec", "ell_matvec",
-     lambda F, vals_pad, entry, src, vec, K: entry.numel())]
+     lambda F, vals_pad, entry, src, vec, K: entry.numel()),
+    (ldt_reducer, "ldt_combine", "ldt_combine",
+     lambda F, inputs, coeffs, sub, tables: len(inputs) * inputs[0].shape[-1]),
+    # K23 as ShardedNTT calls it; a shifted prologue beats an unshifted one
+    (k23, "prologue", "four_step_prologue",
+     lambda F, x, s, D, R, C, sp=None: 2 * x.shape[1] * R * C // D
+     + (sp is not None)),
+    (k23, "twiddle_pack", "four_step_twiddle",
+     lambda F, a, s, D, W: a.numel()),
+    (k23, "unpack", "four_step_unpack", lambda F, recv, R: recv.numel()),
+    (k23, "epilogue", "four_step_epilogue", lambda F, g, C: g.numel())]
 
 
 @contextlib.contextmanager
@@ -1219,7 +1255,7 @@ def fused_calls(record):
 #: which these shapes do not take.  Aurora encodes no rows and sums none;
 #: Ligero folds no codeword (its LDT is the direct one), divides by no
 #: vanishing polynomial, places no columns, and evaluates its LDT's
-#: combination eagerly (K1 and K5), not as a fused DAG.
+#: combination in one K24 launch, not as a fused DAG.
 _BINARY_KERNELS = {"gf2k_mul", "additive_fft", "linearized",
                    "fri_fold_additive", "ell_matvec_gf2", "horner_gf2",
                    "powers_gf2", "p_alpha_m_gf2"}
@@ -1227,26 +1263,34 @@ _FRACTAL_KERNELS = {"p_alpha_m", "p_alpha_m_gf2"}
 #: K22 (the bivariate Lagrange evaluations) is on no SNARK's path: phase 16
 #: drives it through BivariateLagrange.evaluations_over
 _BIVARIATE_KERNELS = {"bivariate", "bivariate_gf2"}
+#: K23 runs only under a codeword mesh (phases 17-19); K24 only on the
+#: Ligero paths, whose LDT combination it is
+FOUR_STEP_KERNELS = ("four_step_prologue", "four_step_twiddle",
+                     "four_step_unpack", "four_step_epilogue")
+_LDT_KERNELS = {"ldt_combine", "ldt_combine_gf2"}
+#: on none of the unsharded SNARK paths
+_ELSEWHERE = _BIVARIATE_KERNELS | set(FOUR_STEP_KERNELS)
 _NOT_ON_PATH = {
     "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"}
-    | _BINARY_KERNELS | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
+    | _BINARY_KERNELS | _FRACTAL_KERNELS | _ELSEWHERE | _LDT_KERNELS,
     "aurora_poseidon": {"blake2b_rows", "lazy_reduce", "rs_encode",
                         "row_dot"} | _BINARY_KERNELS | _FRACTAL_KERNELS
-    | _BIVARIATE_KERNELS,
+    | _ELSEWHERE | _LDT_KERNELS,
     "ligero": {"poseidon", "lazy_reduce", "fri_fold", "fused_dag",
-               "vanishing", "place_columns", "batch_inv"} | _BINARY_KERNELS
-    | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
+               "vanishing", "place_columns", "batch_inv", "ldt_combine_gf2"}
+    | _BINARY_KERNELS | _FRACTAL_KERNELS | _ELSEWHERE,
     # over a binary field K16-K19 and the GF(2^k) instantiations of K7,
     # K8, K10 and K11 take the prime kernels' places; the inverses are K16
     "aurora_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                       "lazy_reduce", "ell_matvec", "poseidon", "horner",
                       "powers", "vanishing", "rs_encode", "row_dot",
-                      "batch_inv"} | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
+                      "batch_inv"} | _FRACTAL_KERNELS | _ELSEWHERE
+    | _LDT_KERNELS,
     # Fractal encodes no rows (no Ligero), evaluates no polynomial by
     # Horner (its lincheck's p_alpha is a closed form) and reduces no lazy
     # sum outside its kernels
     "fractal": {"poseidon", "lazy_reduce", "rs_encode", "row_dot", "horner"}
-    | _BINARY_KERNELS | _BIVARIATE_KERNELS,
+    | _BINARY_KERNELS | _ELSEWHERE | _LDT_KERNELS,
     # Fractal over GF(2^k): the binary kernels of Aurora's path but K10
     # (its lincheck's p_alpha is a closed form), and K21's GF(2^k)
     # instantiation
@@ -1254,14 +1298,15 @@ _NOT_ON_PATH = {
                        "lazy_reduce", "ell_matvec", "poseidon", "horner",
                        "powers", "vanishing", "rs_encode", "row_dot",
                        "batch_inv", "p_alpha_m", "horner_gf2"}
-    | _BIVARIATE_KERNELS,
+    | _ELSEWHERE | _LDT_KERNELS,
     # Ligero over GF(2^k): K16 products, K17 row encodes, K15 row sums,
     # BLAKE2b trees; its LDT is the direct one (no fold, no DAG)
     "ligero_binary": {"mont_mul", "ntt_stage", "fri_fold", "field_addsub",
                       "lazy_reduce", "ell_matvec", "fused_dag", "poseidon",
                       "horner", "powers", "vanishing", "place_columns",
                       "rs_encode", "linearized", "fri_fold_additive",
-                      "batch_inv"} | _FRACTAL_KERNELS | _BIVARIATE_KERNELS,
+                      "batch_inv", "ldt_combine"} | _FRACTAL_KERNELS
+    | _ELSEWHERE,
     # the FRI SNARK: random codewords (K2 with K1's shift and K11's tables),
     # one BLAKE2b tree a round (K3) and the folds (K4); no constraint
     # system, so no sparse product, DAG, vanishing polynomial or inverse
@@ -1355,6 +1400,7 @@ def main_path(F, dev, cs, primary, aux, label, snark, params, seed, off_path,
         launches_prove = dict(kernels.LAUNCHES)
         profile = PROFILER.report()
         blob = proof.serialize()
+        record["blob"] = blob
         t0 = time.time()
         ok = verifier(cs, primary, BCSTranscript.deserialize(blob), params,
                       device=dev)
@@ -2003,10 +2049,380 @@ def check_bivariate(F, dev, paths, log_s=BIVARIATE_LOG_S,
     return [r]
 
 
+# -- phases 17-20: the four-step NTT, the sharded prover, K24 ---------------
+#: the four-step phase's codeword, the shard counts it runs and the shards
+#: of the sharded prover's in-process mesh
+FOUR_STEP_LOG_N = 20
+FOUR_STEP_SHARDS = (1, 2, 4, 8)
+MESH_SHARDS = 4
+#: seconds the two mesh worker processes get before both are killed
+MESH_CHILD_TIMEOUT_S = 420
+
+
+def four_step_ntt(F, dev, log_n=FOUR_STEP_LOG_N):
+    """Phase 17: ShardedNTT at codeword 2^log_n over F on in-process meshes
+    of D = 1, 2, 4, 8 shards on the card, shift 1 and a coset shift: its
+    output equals fft's (K2) byte for byte; each of K23's four launch
+    shapes on the plan's last shard equals its twin; ShardedNTT's ms and
+    fft's side by side."""
+    N = 1 << log_n
+    coeffs = random_elems(F, N, np.random.default_rng(17), dev)
+    for shift in (1, F.multiplicative_generator):
+        dom = MultiplicativeCoset(F, log_n, shift)
+        want = fft(coeffs, dom)
+        fft_ms = time_ms(lambda: fft(coeffs, dom))
+        for D in FOUR_STEP_SHARDS:
+            ntt = ShardedNTT(dom, make_codeword_mesh(devices=[dev] * D))
+            before = {k: kernels.LAUNCHES[k] for k in FOUR_STEP_KERNELS}
+            same = torch.equal(ntt(coeffs), want)
+            launched = {k: kernels.LAUNCHES[k] - before[k]
+                        for k in FOUR_STEP_KERNELS}
+            ms = time_ms(lambda: ntt(coeffs))
+            errs = four_step_twins(F, ntt, coeffs, dev)
+            log(json.dumps({"stage": "four_step_ntt", "field": F.name,
+                            "log_n": log_n, "shift": shift != 1, "D": D,
+                            "R": ntt.R, "C": ntt.C, "equals_fft": same,
+                            "sharded_ntt_ms": ms, "fft_ms": fft_ms,
+                            "k23_launches": launched,
+                            "k23_max_abs_err": errs}))
+            if not same:
+                raise AssertionError(f"ShardedNTT over {D} shards differs "
+                                     f"from fft ({F.name}, shift {shift})")
+            if any(errs.values()):
+                raise AssertionError(f"K23 disagrees with its twin: {errs}")
+            if min(launched.values()) <= 0:
+                raise AssertionError(f"ShardedNTT ran without K23: {launched}")
+
+
+def four_step_twins(F, ntt, coeffs, dev):
+    """K23's four shapes against their twins as ShardedNTT gives them on
+    its last shard (the received and gathered buffers stand in with the
+    same shapes)."""
+    D, R, C = ntt.D, ntt.R, ntt.C
+    s = D - 1
+    x = coeffs.reshape(F.L, 1, -1)
+    sp = ntt.domain.shift_powers(dev) if ntt.domain.shift != 1 else None
+    W = ntt.domain.generator_powers(dev)
+    a = k23.prologue(F, x, s, D, R, C, sp)
+    errs = {"four_step_prologue": max_abs_err(
+        a, k23.prologue_plain(F, x, s, D, R, C, sp))}
+    send = k23.twiddle_pack(F, a, s, D, W)
+    errs["four_step_twiddle"] = max_abs_err(
+        send, k23.twiddle_pack_plain(F, a, s, D, W))
+    c = k23.unpack(F, send, R)
+    errs["four_step_unpack"] = max_abs_err(c, k23.unpack_plain(send, R))
+    g = c.expand((D,) + tuple(c.shape)).contiguous()
+    errs["four_step_epilogue"] = max_abs_err(k23.epilogue(F, g, C),
+                                             k23.epilogue_plain(g, C))
+    return errs
+
+
+def sharded_aurora(F, dev, cs, primary, aux, want_blob, calls):
+    """Phase 18: the aurora cell's configuration proven under
+    codeword_sharding_context of a MESH_SHARDS-shard mesh on the card: the
+    bytes of phase 5's unsharded proof, the four-step route taken and each
+    K23 shape launched (counts set to 0 just before the prove and read just
+    after), no twin on a CUDA tensor; the proof verifies; a warm prove is
+    timed; the golden configuration under the same mesh gives
+    GOLDEN_SHA256.  Returns the prove's launch counts."""
+    mesh = make_codeword_mesh(devices=[dev] * MESH_SHARDS)
+    params = aurora_params(False, "blake2b")
+    with no_twin_on_cuda(), kernel_calls(calls):
+        kernels.reset_launch_counts()
+        for k in SHARD_ROUTES:
+            SHARD_ROUTES[k] = 0
+        t0 = time.time()
+        with codeword_sharding_context(mesh):
+            blob = aurora_snark_prover(cs, primary, aux, params,
+                                       device=dev).serialize()
+        torch.cuda.synchronize()
+        prove_s = time.time() - t0
+        launches = dict(kernels.LAUNCHES)
+        routes = dict(SHARD_ROUTES)
+    ok = aurora_snark_verifier(cs, primary, BCSTranscript.deserialize(blob),
+                               params, device=dev)
+    t0 = time.time()
+    with codeword_sharding_context(mesh):
+        blob2 = aurora_snark_prover(cs, primary, aux, params,
+                                    device=dev).serialize()
+    torch.cuda.synchronize()
+    warm_prove_s = time.time() - t0
+    g_cs, g_primary, g_aux = generate_r1cs_example(
+        F, 16, 3, 15, np.random.default_rng(424242))
+    with seeded_salts(), codeword_sharding_context(mesh):
+        golden_digest = hashlib.sha256(aurora_snark_prover(
+            g_cs, g_primary, g_aux, _golden_params(False),
+            rng=np.random.default_rng(0), device=dev).serialize()).hexdigest()
+    log(json.dumps({"stage": "aurora_sharded", "mesh": repr(mesh),
+                    "prove_s": prove_s, "warm_prove_s": warm_prove_s,
+                    "verified": ok, "argument_bytes": len(blob),
+                    "equals_unsharded": blob == want_blob,
+                    "warm_equals": blob2 == blob, "shard_routes": routes,
+                    "golden_sha256": golden_digest,
+                    "launches_prove": launches}))
+    if blob != want_blob or blob2 != blob:
+        raise AssertionError("the sharded Aurora proof differs from the "
+                             "unsharded one")
+    if not ok:
+        raise AssertionError("the sharded Aurora proof was rejected")
+    if routes["four_step"] <= 0:
+        raise AssertionError(f"no transform took the four-step route: "
+                             f"{routes}")
+    missing = [k for k in FOUR_STEP_KERNELS if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"the sharded prove launched no {missing}")
+    if golden_digest != GOLDEN_SHA256:
+        raise AssertionError("the golden configuration under the mesh "
+                             "differs from the JAX package's")
+    return launches
+
+
+def run_children(cmds, timeout):
+    """Run the commands concurrently; kill every one when any has not ended
+    within ``timeout`` seconds (and fail).  Returns their stdouts."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE) for c in cmds]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"mesh worker failed ({p.returncode}):\n"
+                                     + err.decode(errors="replace")[-3000:])
+            outs.append(out.decode(errors="replace"))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def two_process_aurora(log_n, want_digest, device="cuda:0"):
+    """Phase 19: two ranks spawned with subprocess (this script with
+    --mesh_rank), both on ``device`` with backend gloo and a file://
+    rendezvous in a temporary directory, prove the aurora cell's
+    configuration under make_global_codeword_mesh();
+    assert_same_on_all_processes holds in the workers and their digest must
+    equal the one-process proof's.  With two or more GPUs the same with
+    backend nccl, one GPU a rank."""
+    runs = [("gloo", [device, device])]
+    gpus = torch.cuda.device_count()
+    if gpus >= 2:
+        runs.append(("nccl", ["cuda:0", "cuda:1"]))
+    for backend, devices in runs:
+        with tempfile.TemporaryDirectory() as td:
+            rdv = os.path.join(td, "rendezvous")
+            t0 = time.time()
+            outs = run_children([
+                [sys.executable, os.path.abspath(__file__), "--mesh_rank",
+                 str(r), "--mesh_world", str(len(devices)), "--mesh_rdv", rdv,
+                 "--mesh_backend", backend, "--mesh_device", d, "--log_n",
+                 str(log_n)] for r, d in enumerate(devices)],
+                MESH_CHILD_TIMEOUT_S)
+            wall_s = time.time() - t0
+        lines = [json.loads(next(ln for ln in o.splitlines()
+                                 if ln.startswith("{\"mesh_worker\"")))
+                 for o in outs]
+        log(json.dumps({"stage": "aurora_two_process", "backend": backend,
+                        "world_size": len(devices), "devices": devices,
+                        "wall_s": wall_s, "workers": lines}))
+        for w in lines:
+            if w["digest"] != want_digest:
+                raise AssertionError(f"rank {w['mesh_worker']} ({backend}) "
+                                     "proved other bytes than the "
+                                     "one-process proof")
+            if w["shard_routes"]["four_step"] <= 0 or \
+                    min(w["k23_launches"].values()) <= 0:
+                raise AssertionError(f"rank {w['mesh_worker']} ({backend}) "
+                                     "did not take the four-step route")
+    if gpus < 2:
+        log(f"  nccl: the NCCL run needs two GPUs ({gpus} present) and was "
+            "not run")
+
+
+def mesh_worker(args):
+    """One rank of phase 19: join the process group, prove the aurora
+    cell's configuration under the global mesh, check that every rank has
+    the same digest, print one JSON line."""
+    from datetime import timedelta
+    from libiop_tpu_torch.parallel import multihost
+    dev = torch.device(args.mesh_device)
+    multihost.initialize("file://" + args.mesh_rdv, args.mesh_world,
+                         args.mesh_rank, backend=args.mesh_backend,
+                         device=dev, timeout=timedelta(seconds=300))
+    F = edwards_fr()
+    n = 1 << args.log_n
+    cs, primary, aux = generate_r1cs_example(F, n, 15, n - 1,
+                                             np.random.default_rng(0))
+    mesh = multihost.make_global_codeword_mesh()
+    kernels.reset_launch_counts()
+    t0 = time.time()
+    with no_twin_on_cuda(), codeword_sharding_context(mesh):
+        blob = aurora_snark_prover(cs, primary, aux,
+                                   aurora_params(False, "blake2b"),
+                                   device=dev).serialize()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    prove_s = time.time() - t0
+    digest = hashlib.sha256(blob).hexdigest()
+    multihost.assert_same_on_all_processes(bytes.fromhex(digest))
+    print(json.dumps({"mesh_worker": args.mesh_rank, "mesh": repr(mesh),
+                      "digest": digest, "prove_s": prove_s,
+                      "shard_routes": dict(SHARD_ROUTES),
+                      "k23_launches": {k: kernels.LAUNCHES[k]
+                                       for k in FOUR_STEP_KERNELS}}),
+          flush=True)
+    multihost.shutdown()
+    return 0
+
+
+def check_four_step_recorded(F, calls):
+    """Phase 18, continued: K23's four shapes against their twins on the
+    largest call of each that the sharded prove made, timed; the rows of
+    the kernels line.  Bound: bytes (each pass reads and writes its array
+    once, plus the shift and twiddle table entries it needs) against one
+    product an element on the prologue (with a shift) and the twiddle."""
+    eb, mo = elem_bytes(F), mont_ops(F)
+    rows = []
+
+    def row(name, kernel, plain, nbytes, nops, shape, library=None):
+        got = kernel()
+        r = dict(name=name, route="cuda",
+                 source="libiop_tpu_torch/csrc/four_step.cu",
+                 replaces="libiop_tpu/parallel/shard_ntt.py:40",
+                 max_abs_err=max_abs_err(got, plain()), ms=time_ms(kernel),
+                 plain_ms=time_ms(plain), library_ms=None, field=F.name,
+                 shape=shape, paths=("aurora_sharded",))
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, nops)
+        if library is not None:
+            r["library_ms"] = time_ms(library)
+        report(r)
+        rows.append(r)
+
+    _, (_, x, s, D, R, C, sp) = calls["four_step_prologue"]
+    B, d = x.shape[1], x.shape[2]
+    RD = R // D
+    j = (s * RD + torch.arange(RD)[:, None]
+         + R * k23.bitrev(C, "cpu")[None, :])
+    valid = int((j < d).sum())
+    tables = valid if sp is not None else 0
+    row("four_step_prologue", lambda: k23.prologue(F, x, s, D, R, C, sp),
+        lambda: k23.prologue_plain(F, x, s, D, R, C, sp),
+        eb * (B * valid + tables + B * RD * C), B * tables * mo,
+        f"shard {s} of {D}: ({B}, {d}) -> ({B}, {RD}, {C})"
+        + (", shifted" if sp is not None else ""))
+
+    _, (_, a, s, D, W) = calls["four_step_twiddle"]
+    B, RD, C = a.shape[1:]
+    N = W.shape[1]
+    idx = ((s * RD + torch.arange(RD))[:, None] * torch.arange(C)[None, :]) % N
+    twiddles = int(torch.unique(idx).numel())
+    row("four_step_twiddle", lambda: k23.twiddle_pack(F, a, s, D, W),
+        lambda: k23.twiddle_pack_plain(F, a, s, D, W),
+        eb * (2 * B * RD * C + twiddles), B * RD * C * mo,
+        f"shard {s} of {D}: ({B}, {RD}, {C}) -> ({D}, {B}, {RD}, {C // D})")
+
+    _, (_, recv, R) = calls["four_step_unpack"]
+    D, _, B, RD, CD = recv.shape
+    flat = k23.unpack_plain(
+        torch.arange(recv.numel(), device=recv.device, dtype=torch.int64
+                     ).reshape(recv.shape), R).reshape(-1)
+    row("four_step_unpack", lambda: k23.unpack(F, recv, R),
+        lambda: k23.unpack_plain(recv, R), eb * 2 * B * R * CD, 0,
+        f"({D}, {B}, {RD}, {CD}) -> ({B}, {CD}, {R})",
+        library=lambda: torch.take(recv, flat))
+
+    _, (_, g, C) = calls["four_step_epilogue"]
+    D, _, B, CD, R = g.shape
+    row("four_step_epilogue", lambda: k23.epilogue(F, g, C),
+        lambda: k23.epilogue_plain(g, C), eb * 2 * B * R * C, 0,
+        f"({D}, {B}, {CD}, {R}) -> ({B}, {R * C})",
+        library=lambda: g.permute(1, 2, 4, 0, 3).contiguous())
+    return rows
+
+
+def check_ldt_combine(dev, paths, prime_call, binary_call):
+    """Phase 20: K24 on the Ligero paths: at least one launch on ligero,
+    ligero_zk (ldt_combine) and ligero_gf64 (ldt_combine_gf2); K24 against
+    its twin on the largest call each path family made (and the 8-word
+    instantiation over alt_bn128_Fr at the edwards call's shape, random
+    inputs); the Ligero pins of phase 4 proven again, with K24 launched.
+    Bound: the n inputs and the x^Delta tables read once and the output
+    written once, against n products and n - 1 additions an element (wide
+    products summed and one reduction, as K15's row; over GF(2^k) clmuls
+    XORed and one fold), and a product and an addition for each
+    submaximal coefficient."""
+    for label, key in (("ligero", "ldt_combine"), ("ligero_zk", "ldt_combine"),
+                       ("ligero_gf64", "ldt_combine_gf2")):
+        if paths[label][key] <= 0:
+            raise AssertionError(f"{label} launched no {key}")
+    rows = []
+    Fb = alt_bn128_fr()
+    _, (F, inputs, coeffs, sub, tables) = prime_call
+    n, N = len(inputs), inputs[0].shape[-1]
+    rng = np.random.default_rng(20)
+    bn = Fb.from_ints(Fb.random_ints(n * N, rng), dev).reshape(Fb.L, n, N)
+    bn_tables = {}
+    for t in tables:
+        if t is not None and t.data_ptr() not in bn_tables:
+            bn_tables[t.data_ptr()] = random_elems(Fb, N, rng, dev)
+    cases = [(F, inputs, coeffs, sub, tables, ("ligero_zk", "ligero")),
+             (Fb, [bn[:, k] for k in range(n)], Fb.random_ints(n, rng),
+              [None if c is None else Fb.random_ints(1, rng)[0] for c in sub],
+              [None if t is None else bn_tables[t.data_ptr()]
+               for t in tables], ("ligero_zk", "ligero"))]
+    _, (Fl, *args) = binary_call
+    cases.append((Fl, *args, ("ligero_gf64",)))
+    for Fx, inputs, coeffs, sub, tables, on in cases:
+        n, N = len(inputs), inputs[0].shape[-1]
+        ns = sum(t is not None for t in tables)
+        distinct = len({t.data_ptr() for t in tables if t is not None})
+        binary = Fx.kind == "additive"
+        if binary:  # n clmuls XORed (2W words), one fold; c' x^Delta
+            W = Fx.W
+            clmul = gf_mul_ops(W) - 16 * W
+            ops = (n * clmul + (n - 1) * 2 * W + 16 * W
+                   + ns * (gf_mul_ops(W) + W))
+        else:  # n wide products and adds (2W + 1 words), one reduction
+            ops = ((n + 1) * half_mont_ops(Fx) + (n - 1) * 2 * addsub_ops(Fx)
+                   + ns * (mont_ops(Fx) + addsub_ops(Fx)))
+        bms, by = bound_ms(elem_bytes(Fx) * N * (n + distinct + 1), N * ops)
+        args = (Fx, inputs, coeffs, sub, tables)
+        r = dict(name="ldt_combine_gf2" if binary else "ldt_combine",
+                 route="cuda", source="libiop_tpu_torch/csrc/ldt_combine.cu",
+                 replaces="libiop_tpu/protocols/ldt_reducer.py:105",
+                 max_abs_err=max_abs_err(ldt_combine(*args),
+                                         ldt_combine_plain(*args)),
+                 ms=time_ms(lambda: ldt_combine(*args)),
+                 plain_ms=time_ms(lambda: ldt_combine_plain(*args)),
+                 bound_ms=bms, bound_by=by, library_ms=None, field=Fx.name,
+                 shape=f"{n} inputs ({ns} submaximal, {distinct} tables) of "
+                       f"{N}", paths=on)
+        report(r)
+        rows.append(r)
+    kernels.reset_launch_counts()
+    golden_ligero(dev)
+    golden_ligero_41(dev, {})
+    pins = {k: kernels.LAUNCHES[k] for k in ("ldt_combine", "ldt_combine_gf2")}
+    log(f"  the Ligero pins hold with K24: launches {pins}")
+    if min(pins.values()) <= 0:
+        raise AssertionError(f"the Ligero pins ran without K24: {pins}")
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--log_n", type=int, default=16)
+    # one rank of phase 19's two-process prover (spawned by this script)
+    ap.add_argument("--mesh_rank", type=int)
+    ap.add_argument("--mesh_world", type=int)
+    ap.add_argument("--mesh_rdv")
+    ap.add_argument("--mesh_backend")
+    ap.add_argument("--mesh_device")
     args = ap.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_worker(args)
 
     log("phase 1: device")
     if not torch.cuda.is_available():
@@ -2055,10 +2471,12 @@ def main():
 
     paths = {}
     log(f"phase 5: Aurora main path at 2^{args.log_n} constraints")
-    paths["aurora"], _, _ = main_path(
+    paths["aurora"], _, record = main_path(
         F, dev, cs, primary, aux, "aurora", AURORA,
         aurora_params(False, "blake2b"), None, _NOT_ON_PATH["aurora_blake2b"],
         calls[F.name])
+    aurora_blob = record["blob"]
+    del record
 
     log(f"phase 6: zk Aurora main path at 2^{args.log_n} constraints")
     paths["aurora_zk"], _, record = main_path(
@@ -2146,6 +2564,7 @@ def main():
     del record
     for Fx in (Fg, Fl):
         rows += check_gf2_recorded(Fx, calls[Fx.name])
+    ldt_calls = (calls[F.name]["ldt_combine"], calls[Fl.name]["ldt_combine"])
     del calls
 
     log(f"phase 14: the FRI SNARK at degree 2^{args.log_n + 2}, codeword "
@@ -2161,7 +2580,27 @@ def main():
     for Fx in (F, Fb, Fg, Fl):
         rows += check_bivariate(Fx, dev, paths)
 
-    log("phase 17: results")
+    log(f"phase 17: the four-step NTT at codeword 2^{FOUR_STEP_LOG_N} over "
+        f"{FOUR_STEP_SHARDS} shards on one card")
+    for Fx in (F, Fb):
+        four_step_ntt(Fx, dev)
+
+    log(f"phase 18: the sharded Aurora prover at 2^{args.log_n} "
+        f"constraints, {MESH_SHARDS} shards on one card")
+    mesh_calls = {}
+    paths["aurora_sharded"] = sharded_aurora(F, dev, cs, primary, aux,
+                                             aurora_blob, mesh_calls)
+    rows += check_four_step_recorded(F, mesh_calls)
+    del mesh_calls
+
+    log("phase 19: the sharded Aurora prover across two processes")
+    two_process_aurora(args.log_n, hashlib.sha256(aurora_blob).hexdigest())
+
+    log("phase 20: K24, the LDT combination, on the Ligero paths")
+    rows += check_ldt_combine(dev, paths, *ldt_calls)
+    del ldt_calls
+
+    log("phase 21: results")
     for r in rows:
         # the row's main path: the first of its field's paths (zk first),
         # or of the paths it names, that launched it

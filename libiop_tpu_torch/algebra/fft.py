@@ -8,13 +8,24 @@ coefficient N/d times).  Each butterfly stage is kernel K2; the glue (bit
 reversal, duplication, shift and 1/N scaling with K1) is PyTorch.
 
 Data is (L, *batch, N) Montgomery limbs.
+
+While a codeword mesh is active (parallel/mesh.py), a forward transform of
+order N that D^2 divides runs as the four-step ShardedNTT over the mesh's D
+shards, its coefficients zero-padded to N; every other transform (inverse
+ones, N < D^2) runs locally.  ``SHARD_ROUTES`` counts the route each
+transform under a mesh took.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels.ntt import ntt_stage
+from ..parallel.mesh import active_mesh
 from .domains import MultiplicativeCoset, bitrev_permutation, device_table
+
+#: the routes of the transforms run under an active mesh: the four-step
+#: ShardedNTT, or local
+SHARD_ROUTES = {"four_step": 0, "local": 0}
 
 
 def _bcast(w, ndim):
@@ -43,6 +54,13 @@ def fft(coeffs: torch.Tensor, domain: MultiplicativeCoset) -> torch.Tensor:
     N >= d); returns (L, *batch, N) natural-order evaluations."""
     F = domain.field
     N = domain.order
+    mesh = active_mesh()
+    if mesh is not None:
+        if N % (mesh.size * mesh.size) == 0:
+            SHARD_ROUTES["four_step"] += 1
+            from ..parallel.shard_ntt import ShardedNTT
+            return ShardedNTT(domain, mesh)(coeffs)
+        SHARD_ROUTES["local"] += 1
     dev = coeffs.device
     d = coeffs.shape[-1]
     if d & (d - 1):
@@ -69,6 +87,8 @@ def ifft(evals: torch.Tensor, domain: MultiplicativeCoset) -> torch.Tensor:
     N = domain.order
     dev = evals.device
     assert evals.shape[-1] == N
+    if active_mesh() is not None:
+        SHARD_ROUTES["local"] += 1
     if N == 1:
         return evals
     x = evals.index_select(-1, _bitrev_index(N, dev))

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..algebra.domains import MultiplicativeCoset
+from ..algebra.fft import SHARD_ROUTES  # noqa: F401 (beside DAG_ROUTES)
 from ..kernels.fused_dag import DagLimitError, Tape, TapeRecorder, fused_dag
 from ..utils.profiling import PROFILER
 
@@ -136,6 +137,8 @@ _TAPES: Dict[tuple, Tape] = {}
 #: how the runtime evaluated virtual-oracle DAGs: whole ("fused"), or
 #: split into its roots' constituents first ("split"), counted per call
 DAG_ROUTES = {"fused": 0, "split": 0}
+#: SHARD_ROUTES (algebra/fft.py): how the transforms run under an active
+#: codeword mesh went, "four_step" (ShardedNTT) or "local", counted per call
 
 
 class IOPProtocol:

@@ -20,7 +20,10 @@ LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0,
             "gf2k_mul": 0, "additive_fft": 0, "linearized": 0,
             "fri_fold_additive": 0, "batch_inv": 0, "p_alpha_m": 0,
             "ell_matvec_gf2": 0, "horner_gf2": 0, "powers_gf2": 0,
-            "p_alpha_m_gf2": 0, "bivariate": 0, "bivariate_gf2": 0}
+            "p_alpha_m_gf2": 0, "bivariate": 0, "bivariate_gf2": 0,
+            "four_step_prologue": 0, "four_step_twiddle": 0,
+            "four_step_unpack": 0, "four_step_epilogue": 0,
+            "ldt_combine": 0, "ldt_combine_gf2": 0}
 
 #: 32-bit words per field element that the field kernels are instantiated
 #: for (csrc/field.cuh): 6 for edwards_Fr (L = 12), 8 for alt_bn128_Fr (16)

@@ -14,6 +14,7 @@ import torch
 from ..algebra.domains import device_table
 from ..algebra.generic import fft_any
 from ..iop.runtime import IOPProtocol, OracleHandle, VirtualOracle
+from ..kernels.ldt_combine import ldt_combine
 from .fri import log2_field_size
 
 
@@ -98,6 +99,21 @@ class CombinedLDTOracle(VirtualOracle):
 
     def traced_sig(self):
         return (self.n, tuple(self.submaximal))
+
+    def evaluated_contents(self, constituent_evals):
+        """The eager evaluation, one launch of K24 over every input (the
+        fused DAG path, K8, takes at most 32 inputs; Ligero's direct LDT
+        evaluates its 257-262 eagerly)."""
+        assert self.coefficients is not None, "challenge not set"
+        dev = constituent_evals[0].device
+        sub_coeffs = [None] * self.n
+        tables = [None] * self.n
+        for sc, i in enumerate(self.submaximal):
+            sub_coeffs[i] = self.coefficients[self.n + sc]
+            tables[i] = x_power_evals(
+                self.F, self.L, self.max_degree - self.input_degrees[i], dev)
+        return ldt_combine(self.F, constituent_evals,
+                           self.coefficients[:self.n], sub_coeffs, tables)
 
     def traced_contents(self, F, aux, evals):
         ns = len(self.submaximal)

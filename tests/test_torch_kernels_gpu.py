@@ -805,3 +805,84 @@ def test_fri_snark_on_the_card_gives_the_cpu_bytes(dev):
     assert hashlib.sha256(blob).hexdigest() == \
         "bbd18bb0e21d5088443eca6e58e6a58d41feb9b038fd30ddce84027464e86626"
     assert fri_snark_verifier(Fx, proof, params, device=dev)
+
+
+def test_four_step_matches_twins(dev):
+    """K23's four launch shapes against their twins on a 2^12 plan (R = C
+    = 64) over both widths, D = 1, 2, 4, 8 shards and batches of 1-3, the
+    prologue with and without the shift and with d < N."""
+    from libiop_tpu_torch.kernels import four_step
+    R = C = 64
+    N = R * C
+    for F in (f() for f in FIELDS.values()):
+        dom = MultiplicativeCoset(F, 12, 19)
+        sp, W = dom.shift_powers(dev), dom.generator_powers(dev)
+        for D, B in ((1, 1), (2, 3), (4, 1), (8, 2)):
+            case = (F.name, D, B)
+            for d in (N, N - 333):
+                x = _elems((B, d), d, dev, F)
+                for s in range(D):
+                    for table in (None, sp):
+                        before = LAUNCHES["four_step_prologue"]
+                        got = four_step.prologue(F, x, s, D, R, C, table)
+                        torch.cuda.synchronize()
+                        assert LAUNCHES["four_step_prologue"] == before + 1
+                        assert torch.equal(got, four_step.prologue_plain(
+                            F, x, s, D, R, C, table)), (case, d, s)
+            a = _elems((B, R // D, C), 5, dev, F)
+            for s in range(D):
+                assert torch.equal(
+                    four_step.twiddle_pack(F, a, s, D, W),
+                    four_step.twiddle_pack_plain(F, a, s, D, W)), (case, s)
+            recv = _elems((D, B, R // D, C // D), 6, dev, F).movedim(
+                1, 0).contiguous()
+            assert torch.equal(four_step.unpack(F, recv, R),
+                               four_step.unpack_plain(recv, R)), case
+            g = _elems((D, B, C // D, R), 7, dev, F).movedim(1, 0).contiguous()
+            assert torch.equal(four_step.epilogue(F, g, C),
+                               four_step.epilogue_plain(g, C)), case
+            torch.cuda.synchronize()
+
+
+def test_sharded_ntt_on_the_card_equals_fft(dev):
+    """ShardedNTT over D shards on one card equals K2's fft byte for byte,
+    shift 1 and a coset shift, both widths (2^8 on 8 shards, 2^13 on 4,
+    2^16 on 2)."""
+    from libiop_tpu_torch.algebra.fft import fft
+    from libiop_tpu_torch.parallel.mesh import make_codeword_mesh
+    from libiop_tpu_torch.parallel.shard_ntt import ShardedNTT
+    for F in (f() for f in FIELDS.values()):
+        for dim, D in ((8, 8), (13, 4), (16, 2)):
+            mesh = make_codeword_mesh(devices=[dev] * D)
+            for shift in (1, F.multiplicative_generator):
+                dom = MultiplicativeCoset(F, dim, shift)
+                coeffs = _elems((dom.order - 3,), dim, dev, F)
+                assert torch.equal(ShardedNTT(dom, mesh)(coeffs),
+                                   fft(coeffs, dom)), (F.name, dim, D, shift)
+
+
+def test_ldt_combine_matches_twin(dev):
+    """K24 against its twin on 262 strided views of one (L, n, N) array,
+    every seventh input with a x^Delta table, prime fields (the 8-word
+    accumulator folds every four products) and the four binary widths."""
+    from libiop_tpu_torch.kernels.ldt_combine import (ldt_combine,
+                                                      ldt_combine_plain)
+    n, N = 262, 1 << 12
+    for Fx in [f() for f in FIELDS.values()] + [
+            getattr(binary, name)() for name in BINARY]:
+        rng = np.random.default_rng(n)
+        stacked = Fx.from_ints(Fx.random_ints(n * N, rng), dev).reshape(
+            Fx.L, n, N)
+        tables = [Fx.from_ints(Fx.random_ints(N, rng), dev)
+                  if k % 7 == 3 else None for k in range(n)]
+        coeffs = Fx.random_ints(n, rng)
+        sub = [Fx.random_ints(1, rng)[0] if t is not None else None
+               for t in tables]
+        inputs = [stacked[:, k] for k in range(n)]
+        key = "ldt_combine_gf2" if Fx.kind == "additive" else "ldt_combine"
+        before = LAUNCHES[key]
+        got = ldt_combine(Fx, inputs, coeffs, sub, tables)
+        torch.cuda.synchronize()
+        assert LAUNCHES[key] == before + 1, Fx.name
+        assert torch.equal(got, ldt_combine_plain(Fx, inputs, coeffs, sub,
+                                                  tables)), Fx.name

@@ -268,3 +268,88 @@ def test_ligero_iop_params_match_reference():
                     vars(pj.direct_ldt_params)
                 assert _public(pt.ldt_reducer_params) == \
                     _public(pj.ldt_reducer_params)
+
+
+# -- K24: the LDT reducer's combination ---------------------------------------
+#: n = 262 inputs (Ligero's largest), every seventh of submaximal degree
+#: (Delta 1 to 5), over a domain of 16 elements
+LDT_N, LDT_DIM, LDT_MAX_DEGREE = 262, 4, 12
+
+
+def _ldt_case(name):
+    """Both packages' fields and domains, the input degrees, the random
+    coefficients and the input codewords (numpy, the reference's layout)."""
+    if name == "gf64":
+        from libiop_tpu.algebra.subspace import AffineSubspace as JaxSubspace
+        from libiop_tpu.fields.binary import gf64 as jax_gf64
+        from libiop_tpu_torch.algebra.subspace import AffineSubspace
+        from libiop_tpu_torch.fields.binary import gf64
+        Fj, Ft = jax_gf64(), gf64()
+        Lj = JaxSubspace(Fj, LDT_DIM, shift=1 << 40)
+        Lt = AffineSubspace(Ft, LDT_DIM, 1 << 40)
+    else:
+        Fj, Ft = (m() for m in FIELDS[name])
+        Lj = JaxCoset(Fj, LDT_DIM, shift=Ft.multiplicative_generator)
+        Lt = MultiplicativeCoset(Ft, LDT_DIM, Ft.multiplicative_generator)
+    degrees = [LDT_MAX_DEGREE - (1 + k % 5) if k % 7 == 3 else LDT_MAX_DEGREE
+               for k in range(LDT_N)]
+    rng = np.random.default_rng(262)
+    coeffs = Ft.random_ints(2 * LDT_N, rng)
+    evals = Fj.from_ints_np(Ft.random_ints(LDT_N * Lt.order, rng),
+                            (LDT_N, Lt.order))
+    return Fj, Ft, Lj, Lt, degrees, coeffs, evals
+
+
+#: sha256 of the reference's CombinedLDTOracle.evaluated_contents
+#: (little-endian uint32 limbs or words) per field; the slow test
+#: recomputes them
+LDT_PINS = {
+    "edwards_Fr":
+        "8a510177959e878958ced969a17fc0637433767614a16a2e2fdee43b0f03a5b0",
+    "alt_bn128_Fr":
+        "346258ff4a848340061f52fbe17348c8615eceb651d0456335f3ebfda2e1b03b",
+    "gf64":
+        "7a7fe120183d0825b2c1c2c2b83f597f10f8d42dee52780f41ab5eba1cfca76c",
+}
+
+
+def _ldt_reference(name) -> np.ndarray:
+    from libiop_tpu.protocols.ldt_reducer import \
+        CombinedLDTOracle as JaxCombined
+    Fj, _, Lj, _, degrees, coeffs, evals = _ldt_case(name)
+    jo = JaxCombined(Fj, Lj, degrees)
+    jo.set_coefficients(coeffs)
+    return np.asarray(jo.evaluated_contents(
+        [jnp.asarray(evals[:, k]) for k in range(LDT_N)]), dtype=np.uint32)
+
+
+def _ldt_port(name) -> np.ndarray:
+    """K24's twin, reached through the port's CombinedLDTOracle, each input
+    a strided view of one (L, n, N) array as on Ligero."""
+    from libiop_tpu_torch.protocols.ldt_reducer import CombinedLDTOracle
+    _, Ft, _, Lt, degrees, coeffs, evals = _ldt_case(name)
+    to = CombinedLDTOracle(Ft, Lt, degrees)
+    to.set_coefficients(coeffs)
+    assert len(to.submaximal) == 37
+    stacked = limbs_from_numpy(evals)
+    return limbs_to_numpy(to.evaluated_contents(
+        [stacked[:, k] for k in range(LDT_N)]))
+
+
+@pytest.mark.parametrize("name", sorted(LDT_PINS))
+def test_ldt_combine_matches_reference_pins(name):
+    """K24's twin against the reference's evaluated_contents (its pin)."""
+    assert _digest(_ldt_port(name)) == LDT_PINS[name]
+
+
+def test_ldt_combine_matches_reference_live():
+    np.testing.assert_array_equal(_ldt_port("edwards_Fr"),
+                                  _ldt_reference("edwards_Fr"))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", sorted(LDT_PINS))
+def test_ldt_reference_outputs_give_the_pins(name):
+    want = _ldt_reference(name)
+    np.testing.assert_array_equal(_ldt_port(name), want)
+    assert _digest(want) == LDT_PINS[name]
