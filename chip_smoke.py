@@ -92,7 +92,14 @@ Phases (any failure exits non-zero and prints no result line):
     ligero_gf64, equal to its twin on their largest calls (and over
     alt_bn128_Fr at the edwards shape); the Ligero pins of phase 4 proven
     again with K24;
-21. print the card's name and power limit, the kernels JSON line, then the
+21. K25 (the Lagrange basis of a domain at a point): through
+    lagrange_coefficients_any at |H| = 2^20 over edwards_Fr, alt_bn128_Fr,
+    GF(2^192) and GF(2^64), alpha off H and on H (the one-hot vector), and
+    through poly.lagrange_coefficients at a device alpha over edwards_Fr:
+    one launch a call, equal to its twin, timed; then the microbench's
+    lagrange suite in process on the card at 2^10-2^18, every line parsed
+    and K25 launched;
+22. print the card's name and power limit, the kernels JSON line, then the
     device JSON line last.
 Imports nothing of JAX or of the JAX package.
 """
@@ -153,6 +160,8 @@ from libiop_tpu_torch.kernels.fused_dag import (ADD, MUL, SUB,  # noqa: E402
                                                 fused_dag, fused_dag_plain)
 from libiop_tpu_torch.kernels.horner import (  # noqa: E402
     blocking, horner, horner_gf2_plain, horner_plain)
+from libiop_tpu_torch.kernels.lagrange import (  # noqa: E402
+    lagrange_coeffs, lagrange_coeffs_plain)
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
 from libiop_tpu_torch.kernels import place_columns as k13  # noqa: E402
@@ -193,7 +202,7 @@ from libiop_tpu_torch.snark.fri import (FRISnarkParams,  # noqa: E402
                                         fri_snark_prover, fri_snark_verifier)
 from libiop_tpu_torch.algebra.bivariate import (  # noqa: E402
     BivariateLagrange, index_of_element)
-from libiop_tpu_torch.profiling import instrument  # noqa: E402
+from libiop_tpu_torch.profiling import instrument, microbench  # noqa: E402
 from libiop_tpu_torch.utils.profiling import PROFILER  # noqa: E402
 
 #: sha256 of the golden transcript, pinned by the JAX package's own test
@@ -1263,13 +1272,16 @@ _FRACTAL_KERNELS = {"p_alpha_m", "p_alpha_m_gf2"}
 #: K22 (the bivariate Lagrange evaluations) is on no SNARK's path: phase 16
 #: drives it through BivariateLagrange.evaluations_over
 _BIVARIATE_KERNELS = {"bivariate", "bivariate_gf2"}
+#: K25 (the Lagrange basis of a domain at a point) is on no SNARK's path:
+#: phase 21 drives it through lagrange_coefficients_any
+_LAGRANGE_KERNELS = {"lagrange_coeffs", "lagrange_coeffs_gf2"}
 #: K23 runs only under a codeword mesh (phases 17-19); K24 only on the
 #: Ligero paths, whose LDT combination it is
 FOUR_STEP_KERNELS = ("four_step_prologue", "four_step_twiddle",
                      "four_step_unpack", "four_step_epilogue")
 _LDT_KERNELS = {"ldt_combine", "ldt_combine_gf2"}
 #: on none of the unsharded SNARK paths
-_ELSEWHERE = _BIVARIATE_KERNELS | set(FOUR_STEP_KERNELS)
+_ELSEWHERE = _BIVARIATE_KERNELS | _LAGRANGE_KERNELS | set(FOUR_STEP_KERNELS)
 _NOT_ON_PATH = {
     "aurora_blake2b": {"poseidon", "lazy_reduce", "rs_encode", "row_dot"}
     | _BINARY_KERNELS | _FRACTAL_KERNELS | _ELSEWHERE | _LDT_KERNELS,
@@ -2411,6 +2423,122 @@ def check_ldt_combine(dev, paths, prime_call, binary_call):
     return rows
 
 
+# -- phase 21: K25, the Lagrange basis of a domain at a point --------------
+#: K25's cell: H of 2^20 (the canonical subgroup, or the standard subspace)
+LAGRANGE_LOG_H = 20
+#: the microbench's lagrange suite in phase 21 (its own cap is 2^18)
+LAGRANGE_BENCH_LOGS = (10, 18)
+
+
+def lagrange_scal(F, H, alpha, dev):
+    """The (L, 2) device buffer of alpha and zeta = Z_H(alpha) / c that
+    lagrange_coefficients_any hands K25 (c = h s^(h-1) over a coset, eps
+    over a subspace)."""
+    if F.kind == "additive":
+        c = generic.vanishing_derivative_int(H, alpha)
+    else:
+        c = F.mul_ints(H.order % F.p, F.pow_int(H.shift, H.order - 1))
+    zeta = F.mul_ints(generic.vanishing_eval_int(H, alpha), F.inv_int(c))
+    return F.from_ints([F.sample_int(alpha), zeta], dev)
+
+
+def check_lagrange(F, dev, paths, log_h=LAGRANGE_LOG_H):
+    """Phase 21: lagrange_coefficients_any(H, alpha) on the card with alpha
+    off H and alpha on H, and over a prime field poly.lagrange_coefficients
+    at alpha off H held on the device, from built device tables, with the
+    launch counts set to 0 just before and read just after (one K25 launch
+    a call, no twin); each output against K25's plain twin on the same
+    tables (exact), the device-alpha route against the host-int one, then
+    K25 timed off H.  Bound: the tables of h_k (and g^k over a coset) read
+    once and the output written once; a subtraction an element, three
+    products an element for the batched inverse (Montgomery's trick) and,
+    over a coset, one by g^k."""
+    binary = F.kind == "additive"
+    H = generic.make_domain(F, log_h)
+    hs = H.elements(dev)
+    ws = None if binary else H.generator_powers(dev)
+    points = {"off": F.random_ints(1, np.random.default_rng(23))[0],
+              "on": H.element_by_index_int(H.order // 3)}
+    alpha_dev = F.from_ints([points["off"]], dev).reshape(F.L)
+    label = f"lagrange_{F.name}"
+    name = "lagrange_coeffs_gf2" if binary else "lagrange_coeffs"
+    torch.cuda.synchronize()
+    with no_twin_on_cuda():
+        kernels.reset_launch_counts()
+        outs = {tag: generic.lagrange_coefficients_any(H, a, dev)
+                for tag, a in points.items()}
+        if not binary:
+            outs["device_alpha"] = poly.lagrange_coefficients(H, alpha_dev)
+        torch.cuda.synchronize()
+        paths[label] = dict(kernels.LAUNCHES)
+    if paths[label][name] != len(outs):
+        raise AssertionError(f"{label}: {paths[label][name]} K25 launches "
+                             f"for {len(outs)} calls")
+    if "device_alpha" in outs and not torch.equal(outs["device_alpha"],
+                                                  outs["off"]):
+        raise AssertionError(f"{label}: poly.lagrange_coefficients differs "
+                             "from lagrange_coefficients_any")
+    onehot = torch.zeros(H.order, dtype=torch.bool, device=dev)
+    onehot[H.order // 3] = True
+    if not torch.equal(outs["on"], torch.where(
+            onehot, F.ones((H.order,), dev), F.zeros((H.order,), dev))):
+        raise AssertionError(f"{label}: alpha on H is not one-hot")
+    err, plain_ms = 0, None
+    for tag, a in points.items():
+        scal = lagrange_scal(F, H, a, dev)
+        want, t = timed_once(lambda: lagrange_coeffs_plain(F, hs, ws, scal))
+        err = max(err, max_abs_err(outs[tag], want))
+        if tag == "off":
+            plain_ms, scal_off = t, scal
+    ms = time_ms(lambda: lagrange_coeffs(F, hs, ws, scal_off))
+    n, eb = H.order, elem_bytes(F)
+    ops = (3 * gf_mul_ops(F.W) + F.W) if binary else \
+        (4 * mont_ops(F) + addsub_ops(F))
+    bms, by = bound_ms((2 if binary else 3) * n * eb, n * ops)
+    r = dict(name=name, route="cuda",
+             source="libiop_tpu_torch/csrc/lagrange.cu",
+             replaces="libiop_tpu/algebra/generic.py:320", max_abs_err=err,
+             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             library_ms=None, field=F.name,
+             shape=f"|H| 2^{log_h}, alpha off and on H", paths=(label,))
+    report(r)
+    return [r]
+
+
+def lagrange_microbench(paths, logs=LAGRANGE_BENCH_LOGS):
+    """Phase 21: the microbench's lagrange suite in process on the card
+    (edwards_Fr and GF(2^64)); every line must parse and name the card,
+    the lagrange_{multiplicative,additive}[_cached] lines must cover every
+    size, and K25 must be launched."""
+    import io
+    argv = ["--device", "cuda", "--suite", "lagrange", "--log_min",
+            str(logs[0]), "--log_max", str(logs[1])]
+    buf = io.StringIO()
+    with no_twin_on_cuda(), contextlib.redirect_stdout(buf):
+        kernels.reset_launch_counts()
+        microbench.main(argv)
+        torch.cuda.synchronize()
+        paths["microbench_lagrange"] = dict(kernels.LAUNCHES)
+    lines = [json.loads(ln) for ln in buf.getvalue().splitlines()]
+    for ln in lines:
+        log(json.dumps({"stage": "microbench", **ln}))
+    sizes = {1 << k for k in range(logs[0], logs[1] + 1)}
+    for bench in ("lagrange_multiplicative", "lagrange_additive",
+                  "lagrange_multiplicative_cached",
+                  "lagrange_additive_cached"):
+        got = {ln["n"] for ln in lines if ln["bench"] == bench}
+        if got != sizes:
+            raise AssertionError(f"microbench {bench}: sizes {sorted(got)}")
+    if any(ln["device"] != "cuda" for ln in lines):
+        raise AssertionError("microbench lagrange: a line off the card")
+    launched = paths["microbench_lagrange"]
+    if min(launched["lagrange_coeffs"], launched["lagrange_coeffs_gf2"]) < \
+            2 * len(sizes):
+        raise AssertionError(f"microbench lagrange: K25 launches "
+                             f"{launched['lagrange_coeffs']} / "
+                             f"{launched['lagrange_coeffs_gf2']}")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--log_n", type=int, default=16)
@@ -2600,7 +2728,13 @@ def main():
     rows += check_ldt_combine(dev, paths, *ldt_calls)
     del ldt_calls
 
-    log("phase 21: results")
+    log(f"phase 21: K25, the Lagrange basis of a domain at a point, |H| "
+        f"2^{LAGRANGE_LOG_H}, and the microbench's lagrange suite")
+    for Fx in (F, Fb, Fg, Fl):
+        rows += check_lagrange(Fx, dev, paths)
+    lagrange_microbench(paths)
+
+    log("phase 22: results")
     for r in rows:
         # the row's main path: the first of its field's paths (zk first),
         # or of the paths it names, that launched it

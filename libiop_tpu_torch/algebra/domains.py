@@ -46,6 +46,16 @@ def clear_device_tables():
     _DEVICE_TABLES_BYTES[0] = 0
 
 
+def host_powers(F, x_int: int, n: int, start: int = 1) -> np.ndarray:
+    """[start * x^k, k < n] as a (limbs, n) numpy array computed with host
+    ints (Montgomery limbs over a prime field, words over GF(2^k))."""
+    acc, out = F.sample_int(start), []
+    for _ in range(n):
+        out.append(acc)
+        acc = F.mul_ints(acc, x_int)
+    return F.from_ints_np(out)
+
+
 def device_powers(F, x: torch.Tensor, n: int) -> torch.Tensor:
     """[x^0, ..., x^(n-1)] as (L, n) for a device element x (L,), over a
     prime field or GF(2^k) (kernel K11 on the card)."""
@@ -156,3 +166,6 @@ class MultiplicativeCoset:
         dim = order.bit_length() - 1
         g_sub = pow(self.g, self.order // order, self.field.p)
         return MultiplicativeCoset(self.field, dim, self.shift, g_sub)
+
+    def unshifted_subgroup(self) -> "MultiplicativeCoset":
+        return MultiplicativeCoset(self.field, self.dim, 1, self.g)

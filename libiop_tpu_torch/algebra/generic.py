@@ -13,10 +13,12 @@ from typing import List
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels import place_columns as _k13
+from ..kernels.lagrange import lagrange_coeffs
 from ..kernels.linearized import linearized_multiply
 from . import poly as mpoly
-from .domains import MultiplicativeCoset, device_table
+from .domains import MultiplicativeCoset, device_table, host_powers
 from .fft import fft, ifft, ifft_of_known_degree
 from .linearized import LinearizedVanishing, divide_by_linearized
 from .subspace import AffineSubspace, additive_fft, additive_ifft
@@ -142,6 +144,41 @@ def divide_by_vanishing_any(coeffs, H):
     if is_additive(H):
         return divide_by_linearized(H.field, coeffs, linearized_vanishing(H))
     return mpoly.divide_by_vanishing(coeffs, H)
+
+
+def lagrange_coefficients_any(domain, alpha_int: int, device="cuda"):
+    """(limbs, h) device Lagrange basis of ``domain`` at a host-int point:
+    L_k(alpha) = Z(alpha) / (Z'(e_k) (alpha - e_k)), the one-hot vector when
+    alpha is in the domain.  One K25 launch over the memoized element (and,
+    for a coset, generator-power) tables: zeta g^k / (alpha - e_k) with
+    zeta = Z(alpha) (h s^(h-1))^-1 over a coset, zeta / (alpha - e_k) with
+    zeta = Z(alpha) eps^-1 over a subspace."""
+    F = domain.field
+    dev = resolve_device(device)
+    h = domain.order
+    alpha = F.sample_int(alpha_int)
+    if is_additive(domain):
+        c, ws = linearized_vanishing(domain).epsilon, None
+    else:
+        c = F.mul_ints(h % F.p, F.pow_int(domain.shift, h - 1))
+        ws = domain.generator_powers(dev)
+    zeta = F.mul_ints(vanishing_eval_int(domain, alpha), F.inv_int(c))
+    scal = F.from_ints([alpha, zeta], dev)
+    return lagrange_coeffs(F, domain.elements(dev), ws, scal)
+
+
+def host_powers_any(F, x_int: int, n: int, start: int = 1) -> np.ndarray:
+    """[start * x^k, k < n] as a (limbs, n) numpy array over either field
+    (domains.host_powers takes both)."""
+    return host_powers(F, x_int, n, start=start)
+
+
+def horner_eval_ints(F, coeffs: List[int], x: int) -> int:
+    """Host-int Horner evaluation with field-generic ops."""
+    acc = 0
+    for c in reversed(coeffs):
+        acc = F.add_ints(F.mul_ints(acc, x), c)
+    return acc
 
 
 def lagrange_coeffs_ints_any(domain, x: int) -> List[int]:

@@ -6,7 +6,8 @@ order h and shift s, Z_H(x) = x^h - s^h; its evaluations over another coset
 repeat with period |L|/gcd(|L|, h), so only that short cycle is computed.
 Multiplication and division by Z_H run through kernel K12
 (kernels/vanishing.py), evaluation (over either field family) through K10
-(kernels/horner.py) and the inverses through K20 (kernels/batch_inv.py).
+(kernels/horner.py), the inverses through K20 (kernels/batch_inv.py) and
+the Lagrange basis of H at a device point through K25 (kernels/lagrange.py).
 """
 from __future__ import annotations
 
@@ -15,8 +16,41 @@ from math import gcd
 import torch
 
 from ..kernels.horner import horner
+from ..kernels.lagrange import lagrange_coeffs
 from ..kernels.vanishing import vanishing_divide, vanishing_multiply
-from .domains import MultiplicativeCoset, device_powers
+from .domains import MultiplicativeCoset, device_powers, device_table
+
+
+def _const(F, tag, H: MultiplicativeCoset, value: int, device):
+    """A memoized (L, 1) device constant of H (no host copy after the
+    first call)."""
+    return device_table((tag, H._key()), device,
+                        lambda: F.from_ints([value % F.p], device).reshape(F.L, 1))
+
+
+def vanishing_eval_at_point(H: MultiplicativeCoset, x: torch.Tensor):
+    """Z_H at a device point batch x (L, *batch): x^h - s^h."""
+    F = H.field
+    xh = F.pow_static(x, H.order)
+    sh = _const(F, "shift^h", H, pow(H.shift, H.order, F.p), x.device)
+    return F.sub(xh, sh.reshape((F.L,) + (1,) * (x.ndim - 1)))
+
+
+def vanishing_formal_derivative_at_point(H: MultiplicativeCoset,
+                                         x: torch.Tensor):
+    """Z_H'(x) = h x^(h-1) at a device point batch x (L, *batch)."""
+    F = H.field
+    hx = F.pow_static(x, H.order - 1)
+    h_l = _const(F, "order", H, H.order, x.device)
+    return F.mul(hx, h_l.reshape((F.L,) + (1,) * (x.ndim - 1)))
+
+
+def vanishing_coeffs_ints(H: MultiplicativeCoset):
+    """Host: the coefficients (canonical ints) of Z_H = x^h - s^h."""
+    coeffs = [0] * (H.order + 1)
+    coeffs[0] = (-pow(H.shift, H.order, H.field.p)) % H.field.p
+    coeffs[H.order] = 1
+    return coeffs
 
 
 def vanishing_evals_over(H: MultiplicativeCoset, L: MultiplicativeCoset,
@@ -64,6 +98,24 @@ def lagrange_poly_evals_over(H: MultiplicativeCoset, alpha: int,
     denom = F.sub(F.from_ints([alpha % F.p], device).reshape(F.L, 1).expand(
         F.L, L.order), L.elements(device))
     return F.batch_inverse_and_mul(denom, num)
+
+
+def lagrange_coefficients(H: MultiplicativeCoset,
+                          alpha: torch.Tensor) -> torch.Tensor:
+    """(L, h): the k-th entry is L_k(alpha), the Lagrange basis of H at the
+    device element alpha ((L,) or (L, 1)); one-hot when alpha is in H.
+    L_k(a) = Z_H(a) / (Z_H'(h_k) (a - h_k)) with Z_H'(h_k) = c g^-k,
+    c = h s^(h-1): K25 computes zeta g^k / (a - h_k) with zeta = Z_H(a)
+    c^-1, both read on the device (no host sync)."""
+    F = H.field
+    h = H.order
+    a = alpha.reshape(F.L, 1)
+    dev = a.device
+    c_inv = F.inv_int(h * pow(H.shift, h - 1, F.p) % F.p)
+    zeta = F.mul(vanishing_eval_at_point(H, a),
+                 _const(F, "1/Z'", H, c_inv, dev))
+    scal = torch.cat([a, zeta], dim=1).contiguous()
+    return lagrange_coeffs(F, H.elements(dev), H.generator_powers(dev), scal)
 
 
 def lagrange_poly_eval_at_point_int(H: MultiplicativeCoset, alpha: int,

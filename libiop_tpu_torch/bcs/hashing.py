@@ -12,9 +12,10 @@ from __future__ import annotations
 import hashlib
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
-from ..kernels.blake2b import digest_rows_to_bytes
+from ..kernels.blake2b import digest_rows_to_bytes, merkle_heap
 
 DOMAIN_SEP = b"libiop-tpu/bcs/v1/"
 LEAF_TAG = b"\x00"
@@ -40,6 +41,38 @@ class Blake2bHashing:
 
     def two_to_one(self, left: bytes, right: bytes) -> bytes:
         return blake2b(NODE_TAG + left + right, self.digest_bytes)
+
+    # -- host batches (the native OpenMP library, bcs/native_blake2b.py) ---
+    def leaf_hash_batch_array(self, arr) -> Optional[List[bytes]]:
+        """leaf_hash of each row of a contiguous (n, block_len) uint8
+        array; None for an empty or non-2-D array."""
+        from . import native_blake2b
+        return native_blake2b.hash_batch_array(arr, self.digest_bytes,
+                                               tag=LEAF_TAG)
+
+    def leaf_hash_batch(self, blocks) -> List[bytes]:
+        """leaf_hash of every block (one native batch when the blocks have
+        one length)."""
+        from . import native_blake2b
+        out = native_blake2b.hash_batch(list(blocks), self.digest_bytes,
+                                        tag=LEAF_TAG)
+        if out is not None:
+            return out
+        return [self.leaf_hash(b) for b in blocks]
+
+    def tree_layer(self, digests) -> List[bytes]:
+        """two_to_one of each pair of consecutive digests."""
+        from . import native_blake2b
+        return native_blake2b.tree_layer(list(digests), self.digest_bytes,
+                                         tag=NODE_TAG) or []
+
+    def heap_from_leaf_digests(self, leaf_digests: Sequence[bytes], device
+                               ) -> torch.Tensor:
+        """The (2n, dw) device heap over leaf digests given as bytes: every
+        level through K3 (kernels/blake2b.py merkle_heap)."""
+        raw = np.frombuffer(b"".join(leaf_digests), dtype="<i4")
+        words = torch.from_numpy(raw.reshape(len(leaf_digests), -1).copy())
+        return merkle_heap(words.to(device), self.digest_bytes)
 
     def heap_digests(self, heap: torch.Tensor, ids: Sequence[int]
                      ) -> List[bytes]:

@@ -15,6 +15,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from ..device import resolve_device
+
 
 class MerkleTree:
     """A device-built tree: ``heap`` is the hasher's heap layout (BLAKE2b:
@@ -30,6 +32,7 @@ class MerkleTree:
         self.root = root
         self.salts = salts
         self.make_zk = salts is not None
+        self._nodes = None
 
     @classmethod
     def from_device_heap(cls, hasher, num_leaves: int, heap: torch.Tensor,
@@ -41,12 +44,35 @@ class MerkleTree:
         return cls(hasher, num_leaves, heap, root, salts)
 
     @classmethod
+    def from_leaf_digests(cls, hasher, leaf_digests: List[bytes],
+                          salts: Optional[List[bytes]] = None,
+                          device="cuda") -> "MerkleTree":
+        """A tree over precomputed leaf digests (bytes): its levels are
+        hashed on the device.  A zk tree's caller made the salts, hashed
+        them into the digests, and passes them here for reveal_salts."""
+        n = len(leaf_digests)
+        assert n >= 1 and (n & (n - 1)) == 0
+        heap = hasher.heap_from_leaf_digests(leaf_digests,
+                                             resolve_device(device))
+        return cls(hasher, n, heap, hasher.heap_digests(heap, [1])[0],
+                   None if salts is None else b"".join(salts))
+
+    @classmethod
     def from_nodes(cls, hasher, num_leaves: int, heap: torch.Tensor
                    ) -> "MerkleTree":
         """Rehydrate a tree persisted by an indexer from its node heap (the
         layout ``from_device_heap`` keeps): no leaf is serialized or
         hashed, only the root is read back."""
         return cls(hasher, num_leaves, heap, hasher.heap_digests(heap, [1])[0])
+
+    def materialize_nodes(self) -> List[bytes]:
+        """The host node list in heap layout (nodes[1] the root, nodes[n:]
+        the leaves, nodes[0] empty), read from the device heap once."""
+        if self._nodes is None:
+            self._nodes = self.hasher.heap_digests(
+                self.heap, range(2 * self.num_leaves))
+            self._nodes[0] = b""
+        return self._nodes
 
     def reveal_salts(self, positions: Sequence[int]) -> List[bytes]:
         """The salts of the (sorted, deduplicated) leaf positions."""

@@ -385,6 +385,16 @@ class PoseidonHashing:
         eb = F.elem_bytes
         return [raw[i * eb:(i + 1) * eb] for i in range(digests.shape[-1])]
 
+    def heap_from_leaf_digests(self, leaf_digests: Sequence[bytes], device
+                               ) -> torch.Tensor:
+        """The (L, 2n) device heap over leaf digests given as bytes: every
+        level through K9."""
+        n = len(leaf_digests)
+        heap = torch.zeros((self.F.L, 2 * n), dtype=torch.int32,
+                           device=device)
+        heap[:, n:] = self._bytes_to_mont(leaf_digests, device)[:, 0, :]
+        return k9.poseidon_merkle_levels(self.batched, heap)
+
     def heap_digests(self, heap: torch.Tensor, ids: Sequence[int]
                      ) -> List[bytes]:
         """Host bytes of the nodes ``ids`` of a device heap (L, 2n) of

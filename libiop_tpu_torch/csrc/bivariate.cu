@@ -41,10 +41,11 @@
 // of each block is latency the other resident blocks hide.
 #include <cuda_runtime.h>
 
-#include "field.cuh"
-#include "gf2k.cuh"
+#include "block_inverse.cuh"
 
 namespace {
+
+using binv::is_zero;
 
 constexpr int kThreads = 128;
 constexpr int kPer = 16;
@@ -57,90 +58,11 @@ struct Scalars {
   uint32_t zpx[W];  // Z_S'(x)
 };
 
-// A prime field in Montgomery form, (2W, n) 16-bit limbs.
-template <int W>
-struct PrimeOps {
-  fp::Params<W> P;
-  uint32_t one[W];  // R mod p
-  uint32_t pm2[W];  // the exponent p - 2
-
-  __device__ void load(uint32_t x[W], const uint32_t* src, size_t n,
-                       size_t e) const {
-    fp::load<W>(x, src, n, e);
-  }
-  __device__ void store(uint32_t* dst, size_t n, size_t e,
-                        const uint32_t x[W]) const {
-    fp::store<W>(dst, n, e, x);
-  }
-  __device__ void mul(uint32_t r[W], const uint32_t a[W],
-                      const uint32_t b[W]) const {
-    fp::mont_mul<W>(r, a, b, P);
-  }
-  __device__ void sub(uint32_t r[W], const uint32_t a[W],
-                      const uint32_t b[W]) const {
-    fp::sub_mod<W>(r, a, b, P);
-  }
-  // x^(p-2) by square and multiply, MSB first
-  __device__ void inv(uint32_t r[W], const uint32_t x[W]) const {
-    uint32_t acc[W];
-    fp::copy<W>(acc, one);
-    bool started = false;
-    for (int j = W - 1; j >= 0; --j) {
-      for (int b = 31; b >= 0; --b) {
-        if (started) fp::mont_mul<W>(acc, acc, acc, P);
-        if ((pm2[j] >> b) & 1u) {
-          fp::mont_mul<W>(acc, acc, x, P);
-          started = true;
-        }
-      }
-    }
-    fp::copy<W>(r, acc);
-  }
-};
-
-// GF(2^k), k = 32 W, (W, n) words.
-template <int W>
-struct BinaryOps {
-  gf::Taps T;
-  uint32_t one[W];
-
-  __device__ void load(uint32_t x[W], const uint32_t* src, size_t n,
-                       size_t e) const {
-    gf::load<W>(x, src, n, e);
-  }
-  __device__ void store(uint32_t* dst, size_t n, size_t e,
-                        const uint32_t x[W]) const {
-    gf::store<W>(dst, n, e, x);
-  }
-  __device__ void mul(uint32_t r[W], const uint32_t a[W],
-                      const uint32_t b[W]) const {
-    gf::mul<W>(r, a, b, T);
-  }
-  __device__ void sub(uint32_t r[W], const uint32_t a[W],
-                      const uint32_t b[W]) const {
-    gf::add<W>(r, a, b);
-  }
-  __device__ void inv(uint32_t r[W], const uint32_t x[W]) const {
-    gf::inv<W>(r, x, T);
-  }
-};
-
-template <int W>
-__device__ __forceinline__ bool is_zero(const uint32_t x[W]) {
-  uint32_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < W; ++j) acc |= x[j];
-  return acc == 0;
-}
-
 template <int W, class Ops>
 __global__ void bivariate_kernel(uint32_t* __restrict__ out,
                                  const uint32_t* __restrict__ ys,
                                  const uint32_t* __restrict__ zy, size_t n,
                                  long long diag, Scalars<W> S, Ops ops) {
-  __shared__ uint32_t pre[2][kThreads][W];
-  __shared__ uint32_t suf[2][kThreads][W];
-  __shared__ uint32_t block_inv[W];
   const int t = threadIdx.x;
   const size_t base = (size_t)blockIdx.x * kBlockElems + t;
 
@@ -159,32 +81,11 @@ __global__ void bivariate_kernel(uint32_t* __restrict__ out,
     }
   }
 
-  // 2. inclusive scans of the threads' products, both ways
-  fp::copy<W>(pre[0][t], run);
-  fp::copy<W>(suf[0][t], run);
-  __syncthreads();
-  int cur = 0;
-  for (int d = 1; d < kThreads; d <<= 1) {
-    uint32_t v[W], s[W];
-    fp::copy<W>(v, pre[cur][t]);
-    fp::copy<W>(s, suf[cur][t]);
-    if (t >= d) ops.mul(v, v, pre[cur][t - d]);
-    if (t + d < kThreads) ops.mul(s, s, suf[cur][t + d]);
-    fp::copy<W>(pre[cur ^ 1][t], v);
-    fp::copy<W>(suf[cur ^ 1][t], s);
-    __syncthreads();
-    cur ^= 1;
-  }
-
-  // 3. one inversion of the block's product
-  if (t == 0) ops.inv(block_inv, pre[cur][kThreads - 1]);
-  __syncthreads();
-
-  // 4. this thread's inverse, then its elements backwards
+  // 2-3. the block's scans and its one inversion (csrc/block_inverse.cuh)
   uint32_t inv[W];
-  fp::copy<W>(inv, block_inv);
-  if (t > 0) ops.mul(inv, inv, pre[cur][t - 1]);
-  if (t + 1 < kThreads) ops.mul(inv, inv, suf[cur][t + 1]);
+  binv::thread_inverse<W, kThreads>(inv, run, ops.one, ops);
+
+  // 4. this thread's elements backwards
 #pragma unroll 1
   for (int k = kPer - 1; k >= 0; --k) {
     const size_t e = base + (size_t)k * kThreads;
@@ -232,26 +133,16 @@ template <int W>
 int launch_prime(void* out, const void* ys, const void* zy, long long n,
                  long long diag, const uint32_t* scalars,
                  const uint32_t* one, const uint32_t* field, void* stream) {
-  PrimeOps<W> ops;
-  ops.P = fp::params_from<W>(field);
-  uint64_t borrow = 2;
-  for (int j = 0; j < W; ++j) {
-    ops.one[j] = one[j];
-    const uint64_t v = (uint64_t)ops.P.p[j] - borrow;
-    ops.pm2[j] = (uint32_t)v;
-    borrow = (v >> 63) & 1u;
-  }
-  return run<W>(out, ys, zy, n, diag, scalars, ops, stream);
+  return run<W>(out, ys, zy, n, diag, scalars,
+                binv::prime_ops<W>(field, one), stream);
 }
 
 template <int W>
 int launch_binary(void* out, const void* ys, const void* zy, long long n,
                   long long diag, const uint32_t* scalars,
                   const uint32_t* taps, void* stream) {
-  BinaryOps<W> ops;
-  ops.T = gf::taps_from(taps);
-  for (int j = 0; j < W; ++j) ops.one[j] = j == 0 ? 1u : 0u;
-  return run<W>(out, ys, zy, n, diag, scalars, ops, stream);
+  return run<W>(out, ys, zy, n, diag, scalars, binv::binary_ops<W>(taps),
+                stream);
 }
 
 }  // namespace

@@ -137,6 +137,10 @@ class BinaryField:
             out[i] = int.from_bytes(raw[i * eb:(i + 1) * eb], "little")
         return out.reshape(shape)
 
+    def to_int(self, words) -> int:
+        """The first element of a word tensor as a canonical int."""
+        return int(self.to_ints(words).reshape(-1)[0])
+
     def zeros(self, shape, device) -> torch.Tensor:
         return torch.zeros((self.W,) + tuple(shape), dtype=torch.int32,
                            device=device)

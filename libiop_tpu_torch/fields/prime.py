@@ -131,6 +131,10 @@ class PrimeField:
             out[k] = int.from_bytes(raw[k * eb:(k + 1) * eb], "little")
         return out.reshape(batch_shape)
 
+    def to_int(self, limbs: torch.Tensor) -> int:
+        """The first element of a limb tensor as a canonical int."""
+        return int(self.to_ints(limbs).reshape(-1)[0])
+
     # -- host-int arithmetic (verifier side) -------------------------------
     @property
     def field_size(self) -> int:
@@ -247,8 +251,15 @@ class PrimeField:
     # ------------------------------------------------------------------
     # predicates / conversions
     # ------------------------------------------------------------------
+    def is_zero(self, a):
+        return (a == 0).all(dim=0)
+
     def eq(self, a, b):
         return (a == b).all(dim=0)
+
+    def select(self, pred, a, b):
+        """pred (*batch,) bool; a, b (L, *batch)."""
+        return torch.where(pred[None, ...], a, b)
 
     def to_canonical_limbs(self, a):
         """Montgomery -> canonical-value limbs: a * R^-1 mod p."""

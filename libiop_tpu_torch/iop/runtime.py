@@ -322,6 +322,11 @@ class IOPProtocol:
         return self.prover_messages[handle.id]
 
     # -- oracle access: vectorized ----------------------------------------
+    def get_oracle_domain(self, handle: OracleHandle):
+        reg = (self.virtual_regs[handle.id] if handle.virtual
+               else self.oracle_regs[handle.id])
+        return self.get_domain(reg.domain)
+
     def get_oracle_degree_bound(self, handle: OracleHandle) -> int:
         reg = (self.virtual_regs[handle.id] if handle.virtual
                else self.oracle_regs[handle.id])

@@ -11,6 +11,7 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0,
@@ -23,7 +24,8 @@ LAUNCHES = {"mont_mul": 0, "ntt_stage": 0, "blake2b_rows": 0, "fri_fold": 0,
             "p_alpha_m_gf2": 0, "bivariate": 0, "bivariate_gf2": 0,
             "four_step_prologue": 0, "four_step_twiddle": 0,
             "four_step_unpack": 0, "four_step_epilogue": 0,
-            "ldt_combine": 0, "ldt_combine_gf2": 0}
+            "ldt_combine": 0, "ldt_combine_gf2": 0, "lagrange_coeffs": 0,
+            "lagrange_coeffs_gf2": 0}
 
 #: 32-bit words per field element that the field kernels are instantiated
 #: for (csrc/field.cuh): 6 for edwards_Fr (L = 12), 8 for alt_bn128_Fr (16)
@@ -62,6 +64,17 @@ def check_limbs(name: str, t: torch.Tensor, device: torch.device = None):
         raise ValueError(f"{name}: expected a contiguous tensor")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
+
+
+def host_words(F, values) -> np.ndarray:
+    """Host ints as a kernel's 32-bit words, W a value: the Montgomery form
+    x R mod p over a prime field, the canonical bits over GF(2^k)."""
+    if F.kind == "additive":
+        W, vals = F.W, values
+    else:
+        W, vals = F.L // 2, [v * F.R % F.p for v in values]
+    return np.array([(v >> (32 * j)) & 0xffffffff
+                     for v in vals for j in range(W)], dtype=np.uint32)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

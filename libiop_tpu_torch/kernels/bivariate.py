@@ -4,11 +4,10 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
-from . import (LAUNCHES, binary_words, build, check_limbs, field_words, ptr,
-               raise_on_error, stream_ptr)
+from . import (LAUNCHES, binary_words, build, check_limbs, field_words,
+               host_words, ptr, raise_on_error, stream_ptr)
 from ..fields.limbs import sub_plain
 from .batch_inv import batch_inv_plain
 
@@ -37,17 +36,6 @@ def bivariate_evals_plain(F, ys: torch.Tensor, zy: torch.Tensor, x: int,
     return out
 
 
-def _words(F, values) -> np.ndarray:
-    """Host ints as the kernel's 32-bit words: the Montgomery form x R mod
-    p over a prime field, the canonical bits over GF(2^k)."""
-    if F.kind == "additive":
-        W, vals = F.W, values
-    else:
-        W, vals = F.L // 2, [v * F.R % F.p for v in values]
-    return np.array([(v >> (32 * j)) & 0xffffffff
-                     for v in vals for j in range(W)], dtype=np.uint32)
-
-
 def bivariate_evals(F, ys: torch.Tensor, zy: torch.Tensor, x: int, zx: int,
                     zpx: int, diag: int) -> torch.Tensor:
     """f(x, y) = (Z_S(x) - Z_S(y)) (x - y)^-1 for every y of the (L, n)
@@ -67,7 +55,7 @@ def bivariate_evals(F, ys: torch.Tensor, zy: torch.Tensor, x: int, zx: int,
     if ys.device.type == "cpu":
         return bivariate_evals_plain(F, ys, zy, x, zx, zpx, diag)
     out = torch.empty_like(ys)
-    scal = _words(F, [x, zx, zpx])
+    scal = host_words(F, [x, zx, zpx])
     scal_p = scal.ctypes.data_as(ctypes.c_void_p)
     stream = stream_ptr(ys.device)
     if F.kind == "additive":
@@ -77,7 +65,7 @@ def bivariate_evals(F, ys: torch.Tensor, zy: torch.Tensor, x: int, zx: int,
                  binary_words(F), F.kernel_params(), stream)
         counter = "bivariate_gf2"
     else:
-        one = _words(F, [1])
+        one = host_words(F, [1])
         fn = build.launcher("bivariate", "bivariate_launch", _PRIME_ARGTYPES)
         err = fn(ptr(out), ptr(ys), ptr(zy), n, diag, scal_p,
                  one.ctypes.data_as(ctypes.c_void_p), field_words(F),

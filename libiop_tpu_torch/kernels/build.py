@@ -29,7 +29,7 @@ SOURCES = ("mont_mul", "ntt", "blake2b", "fri_fold", "field_addsub",
            "powers", "vanishing", "place_columns", "rs_encode", "row_dot",
            "gf2k_mul", "additive_fft", "linearized", "fri_fold_additive",
            "batch_inv", "p_alpha_m", "bivariate", "four_step",
-           "ldt_combine")
+           "ldt_combine", "lagrange")
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

@@ -256,7 +256,11 @@ def poseidon_merkle_heap_plain(bp, elems: torch.Tensor) -> torch.Tensor:
     n = elems.shape[2]
     heap = torch.zeros((F.L, 2 * n), dtype=torch.int32, device=elems.device)
     heap[:, n:] = poseidon_sponge_plain(bp, elems)
-    m = n
+    return _levels_plain(bp, heap)
+
+
+def _levels_plain(bp, heap: torch.Tensor) -> torch.Tensor:
+    m = heap.shape[1] // 2
     while m > 1:
         pairs = torch.stack([heap[:, m:2 * m:2], heap[:, m + 1:2 * m:2]], dim=1)
         heap[:, m // 2:m] = poseidon_sponge_plain(bp, pairs)
@@ -314,7 +318,17 @@ def poseidon_merkle_heap(bp, elems: torch.Tensor) -> torch.Tensor:
         return poseidon_merkle_heap_plain(bp, elems)
     heap = torch.zeros((F.L, 2 * n), dtype=torch.int32, device=elems.device)
     _launch(bp, heap, n, elems.reshape(F.L, k * n), 0, n, 1, n, k)
-    m = n
+    return poseidon_merkle_levels(bp, heap)
+
+
+def poseidon_merkle_levels(bp, heap: torch.Tensor) -> torch.Tensor:
+    """Fill, in place, the levels above the leaves heap[:, n:] of a (L, 2n)
+    heap: parent m = two_to_one(2m, 2m+1).  CUDA tensors launch K9 once per
+    level; CPU tensors run the plain twin."""
+    check_limbs("poseidon_merkle_levels(heap)", heap)
+    if heap.device.type == "cpu":
+        return _levels_plain(bp, heap)
+    m = heap.shape[1] // 2
     while m > 1:
         _launch(bp, heap, m // 2, heap, m, 1, 2, m // 2, 2)
         m //= 2

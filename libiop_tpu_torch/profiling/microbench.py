@@ -135,14 +135,15 @@ def suite_fft(args):
 # -- Lagrange (benchmark_lagrange.cpp:12-100) --------------------------------
 
 def suite_lagrange(args):
-    """The Lagrange coefficients of a domain at a point (host ints, then the
-    memoized repeat, lagrange.hpp:21-55), and the unnormalized Lagrange
-    basis over the domain on the card (K22)."""
+    """The Lagrange basis of a domain at a point on the card (K25), then its
+    repeat at the same point over the memoized domain tables
+    (lagrange.hpp:21-55), and the unnormalized Lagrange basis over the
+    domain (K22)."""
     from ..algebra.bivariate import BivariateLagrange
-    from ..algebra.generic import lagrange_coeffs_ints_any, make_domain
+    from ..algebra.generic import lagrange_coefficients_any, make_domain
     rng = np.random.default_rng(7)
     dev = args.dev
-    log_max = min(args.log_max, 16)  # host ints; keep bounded
+    log_max = min(args.log_max, 18)
     for name in ("edwards", "gf64"):
         if name not in args.fields:
             continue
@@ -151,10 +152,10 @@ def suite_lagrange(args):
         for log_n in range(args.log_min, log_max + 1):
             dom = make_domain(F, log_n)
             alpha = F.random_ints(1, rng)[0]
-            _emit(args, f"lagrange_{kind}", dom.order,
-                  _once(lambda: lagrange_coeffs_ints_any(dom, alpha), dev))
-            _emit(args, f"lagrange_{kind}_cached", dom.order,
-                  _once(lambda: lagrange_coeffs_ints_any(dom, alpha), dev))
+            _emit(args, f"lagrange_{kind}", dom.order, _once(
+                lambda: lagrange_coefficients_any(dom, alpha, dev), dev))
+            _emit(args, f"lagrange_{kind}_cached", dom.order, _once(
+                lambda: lagrange_coefficients_any(dom, alpha, dev), dev))
             f = BivariateLagrange(dom)
             _emit(args, f"bivariate_lagrange_{kind}", dom.order,
                   _timeit(lambda: f.evaluations_over(alpha, dom, dev), dev))

@@ -149,12 +149,8 @@ class FractalIOP:
     def produce_index(self):
         """Compute and submit the round-0 index oracles and hand the
         K-vectors to the lincheck (each matrix's computed once)."""
-        dev = self.iop.device
-        vectors = []
-        for idxr in self.indexers:
-            vecs = idxr.vectors_over_K(dev)
-            idxr.submit_oracles(vecs)
-            vectors.append(vecs)
+        vectors = [idxr.compute_oracles(self.iop.device)
+                   for idxr in self.indexers]
         self.protocol.set_index_vectors_over_K(vectors)
         self.iop.signal_prover_round_done()
 

@@ -26,6 +26,7 @@ from ..algebra.generic import (batch_inv_ints, fft_any, ifft_any,
                                is_additive,
                                vanishing_derivative_int_at_element,
                                vanishing_derivative_list)
+from ..device import resolve_device
 from ..iop.runtime import IOPProtocol, OracleHandle
 
 
@@ -134,6 +135,14 @@ class MatrixIndexer:
         rc_evals[:nnz] = row_elems * col_elems % F.p
         # transpose: swap row and col (val is already indexed for M')
         return [col_evals, row_evals, val_evals, rc_evals]
+
+    def compute_oracles(self, device="cuda") -> List[torch.Tensor]:
+        """LDE the four K-vectors to the codeword domain and submit them
+        (fractal_indexer.tcc:126-150); returns the K-vectors (the
+        lincheck's index inputs)."""
+        vectors = self.vectors_over_K(resolve_device(device))
+        self.submit_oracles(vectors)
+        return vectors
 
     def submit_oracles(self, vectors: List[torch.Tensor]):
         """LDE each K-vector (device tensors) to the codeword domain and

@@ -41,6 +41,10 @@ class SparseMatrix:
         self._plans = {}
         self._dev_cache = {}
 
+    @property
+    def num_nonzero(self) -> int:
+        return len(self.rows)
+
     @classmethod
     def from_entries(cls, F, num_rows: int, num_cols: int, entries):
         """entries: list of (row, col, int_value)."""

@@ -43,6 +43,19 @@ class BlockProfiler:
             self._stack.pop()
             self.records.append((depth, name, time.time() - t0))
 
+    def enter_block(self, name: str):
+        self._stack.append((name, time.time()))
+
+    def leave_block(self, name: str):
+        nm, t0 = self._stack.pop()
+        assert nm == name, (nm, name)
+        self.records.append((len(self._stack), nm, time.time() - t0))
+
+    def print_report(self):
+        """The records as an indented tree, in the order blocks closed."""
+        for depth, name, secs in self.records:
+            print(f"{'  ' * depth}[{secs:8.3f}s] {name}")
+
     def report(self) -> list:
         """[(depth, name, seconds)] timing tree, JSON-serializable."""
         return list(self.records)

@@ -1,8 +1,8 @@
 """The hand-written CUDA kernels against their plain PyTorch twins, on the
 card, at shapes and broadcast patterns the main paths use, over edwards_Fr
 (6-word instantiations) and alt_bn128_Fr (8-word), and the binary-field
-kernels (and the binary routes of K7, K10, K11, K15, K17, K21 and K22) over
-gf64, gf128, gf192 and gf256; and the FRI SNARK on the card, whose bytes
+kernels (and the binary routes of K7, K10, K11, K15, K17, K21, K22 and K25)
+over gf64, gf128, gf192 and gf256; and the FRI SNARK on the card, whose bytes
 are the CPU path's.  Marked gpu: each test
 skips without a CUDA device.  Imports nothing of JAX, so it also runs
 on a machine without it:
@@ -31,6 +31,8 @@ from libiop_tpu_torch.kernels.field_addsub import (field_addsub,
 from libiop_tpu_torch.kernels.fri_fold import fri_fold, fri_fold_plain
 from libiop_tpu_torch.kernels.fused_dag import (TapeRecorder, fused_dag,
                                                 fused_dag_plain)
+from libiop_tpu_torch.kernels.lagrange import (lagrange_coeffs,
+                                               lagrange_coeffs_plain)
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce
 from libiop_tpu_torch.kernels.mont_mul import mont_mul
 from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain
@@ -58,7 +60,10 @@ from libiop_tpu_torch.relations.sparse import SparseMatrix
 from libiop_tpu_torch.algebra import subspace
 from libiop_tpu_torch.algebra.bivariate import (BivariateLagrange,
                                                 index_of_element)
-from libiop_tpu_torch.algebra.generic import (make_domain,
+from libiop_tpu_torch.algebra import poly
+from libiop_tpu_torch.algebra.generic import (lagrange_coefficients_any,
+                                              lagrange_coeffs_ints_any,
+                                              make_domain,
                                               vanishing_derivative_int,
                                               vanishing_eval_int,
                                               vanishing_evals_over_any)
@@ -784,6 +789,59 @@ def _check_bivariate(dev, name):
     args = (x_off, 5, 7, 100)
     got = bivariate_evals(Fx, ys, zy, *args)
     assert torch.equal(got, bivariate_evals_plain(Fx, ys, zy, *args)), name
+
+
+def test_lagrange_matches_twin(dev):
+    """K25 through lagrange_coefficients_any over both prime fields and
+    every binary width, one launch a call, with alpha off H and on H (the
+    one-hot vector), at |H| of 8, 2048 and 8192 (part of a block of 2048,
+    one block, four), equal to its twin and, at |H| = 8, to the host-int
+    coefficients; then poly.lagrange_coefficients at a device alpha, and a
+    part-filled last block."""
+    for name in sorted(FIELDS) + list(BINARY):
+        Fx = FIELDS[name]() if name in FIELDS else getattr(binary, name)()
+        counter = ("lagrange_coeffs_gf2" if Fx.kind == "additive"
+                   else "lagrange_coeffs")
+        for log_h in (3, 11, 13):
+            H = make_domain(Fx, log_h)
+            hs = H.elements(dev)
+            ws = None if Fx.kind == "additive" else H.generator_powers(dev)
+            a_off = Fx.random_ints(1, np.random.default_rng(log_h))[0]
+            for a in (a_off, H.element_by_index_int(H.order - 3)):
+                before = LAUNCHES[counter]
+                got = lagrange_coefficients_any(H, a, dev)
+                torch.cuda.synchronize()
+                assert LAUNCHES[counter] == before + 1
+                want = lagrange_coeffs_plain(Fx, hs, ws,
+                                             _lagrange_scal(Fx, H, a, dev))
+                assert torch.equal(got, want), (name, log_h, a)
+                if log_h == 3:
+                    assert [int(v) for v in Fx.to_ints(got)] == \
+                        lagrange_coeffs_ints_any(H, a), (name, a)
+        if Fx.kind != "additive":
+            alpha = Fx.from_ints([a_off], dev).reshape(Fx.L)
+            before = LAUNCHES[counter]
+            got = poly.lagrange_coefficients(H, alpha)
+            torch.cuda.synchronize()
+            assert LAUNCHES[counter] == before + 1
+            assert torch.equal(got, lagrange_coefficients_any(H, a_off, dev))
+        n = 2048 + 77
+        scal = _lagrange_scal(Fx, H, a_off, dev)
+        hs_n = hs[:, :n].contiguous()
+        ws_n = None if ws is None else ws[:, :n].contiguous()
+        assert torch.equal(lagrange_coeffs(Fx, hs_n, ws_n, scal),
+                           lagrange_coeffs_plain(Fx, hs_n, ws_n, scal)), name
+
+
+def _lagrange_scal(Fx, H, a, dev):
+    """The (L, 2) buffer of alpha and zeta that lagrange_coefficients_any
+    hands K25."""
+    if Fx.kind == "additive":
+        c = vanishing_derivative_int(H, a)
+    else:
+        c = Fx.mul_ints(H.order % Fx.p, Fx.pow_int(H.shift, H.order - 1))
+    zeta = Fx.mul_ints(vanishing_eval_int(H, a), Fx.inv_int(c))
+    return Fx.from_ints([Fx.sample_int(a), zeta], dev)
 
 
 def test_fri_snark_on_the_card_gives_the_cpu_bytes(dev):
