@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
  3. hold each field kernel K1-K7 and K13-K15 (and K3 on salted zk leaves)
     against its plain PyTorch twin on the card at the main paths' shapes
     (exact equality), over edwards_Fr (6-word instantiations) and
-    alt_bn128_Fr (8-word), and time both with CUDA events;
+    alt_bn128_Fr (8-word), and time both with CUDA events; K13 also at
+    column counts that are not multiples of 4, a sentinel-only map, int32
+    and int64 maps, aligned and at an offset;
  4. golden: the Aurora proofs of the reference's golden configuration,
     non-zk and zk (Merkle salts from a seeded stream), of its Poseidon
     configuration over alt_bn128_Fr (poseidon, poseidon_high_alpha, and
@@ -79,6 +81,7 @@ Phases (any failure exits non-zero and prints no result line):
     alt_bn128_Fr on in-process meshes of D = 1, 2, 4 and 8 shards on the
     card, shift 1 and a coset shift, equal to fft (K2) byte for byte; K23's
     four launch shapes against their twins; ShardedNTT's ms beside fft's;
+    K23's unpack and epilogue at C/D = 1, 2 and 4, R = D and batch 3;
 18. the sharded Aurora prover: phase 5's configuration under
     codeword_sharding_context of a 4-shard mesh on the card gives phase
     5's bytes, takes the four-step route and launches every K23 shape; the
@@ -100,7 +103,13 @@ Phases (any failure exits non-zero and prints no result line):
     lagrange suite in process on the card at 2^10-2^18, every line parsed
     and K25 launched;
 22. print the card's name and power limit, the kernels JSON line, then the
-    device JSON line last.
+    device JSON line last.  A kernel row's ``ms`` is its device-only time a
+    call (device_ms: n back-to-back calls between two CUDA events, queued
+    behind a spin kernel so that no host dispatch falls inside; ``ms_by``
+    says how it was taken), ``call_ms`` one call between two events, host
+    dispatch included; ``library_ms`` and ``library_call_ms`` time the
+    PyTorch call of the same function (K13, K23's unpack and epilogue) the
+    same two ways; ``plain_ms`` is single-call.
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
@@ -204,6 +213,8 @@ from libiop_tpu_torch.algebra.bivariate import (  # noqa: E402
     BivariateLagrange, index_of_element)
 from libiop_tpu_torch.profiling import instrument, microbench  # noqa: E402
 from libiop_tpu_torch.utils.profiling import PROFILER  # noqa: E402
+from tools.device_timing import (DEVICE_MAX_CALLS, cupti_ms,  # noqa: E402
+                                 time_ms, timing)
 
 #: sha256 of the golden transcript, pinned by the JAX package's own test
 #: (tests/test_golden_transcript.py:22)
@@ -372,22 +383,12 @@ def ntt_products(n):
                for m in (1 << s for s in range(n.bit_length() - 1)))
 
 
-def time_ms(fn, setup=None, reps=5, warmup=1):
-    """Median milliseconds of fn() on the current stream (CUDA events);
-    setup() runs before each start event and is not timed."""
-    times = []
-    for r in range(warmup + reps):
-        if setup is not None:
-            setup()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        if r >= warmup:
-            times.append(start.elapsed_time(end))
-    return float(np.median(times))
+def add_times(rows_times):
+    """The times of a row that sums several calls."""
+    hows = sorted({t["ms_by"].split(",")[0] for t in rows_times})
+    return {"ms": sum(t["ms"] for t in rows_times),
+            "call_ms": sum(t["call_ms"] for t in rows_times),
+            "ms_by": " + ".join(hows)}
 
 
 def timed_once(fn):
@@ -431,7 +432,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
         name="mont_mul", route="cuda",
         source="libiop_tpu_torch/csrc/mont_mul.cu",
         replaces="libiop_tpu/fields/prime.py:317", max_abs_err=err,
-        ms=time_ms(lambda: mont_mul(F, a, b)),
+        **timing(lambda: mont_mul(F, a, b)),
         plain_ms=time_ms(lambda: mul_plain(F, a, b)),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"({L}, 2^{k + 3}) x ({L}, 2^{k + 3})"))
@@ -468,7 +469,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
     rows.append(dict(
         name="ntt_stage", route="cuda", source="libiop_tpu_torch/csrc/ntt.cu",
         replaces="libiop_tpu/algebra/fft.py:103", max_abs_err=err,
-        ms=time_ms(net_kernel, setup=lambda: buf.copy_(x0)),
+        **timing(net_kernel, setup=lambda: buf.copy_(x0)),
         plain_ms=time_ms(net_plain),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"{dim} stages over N = 2^{dim} (one NTT)"))
@@ -501,7 +502,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
             name="blake2b_rows", route="cuda",
             source="libiop_tpu_torch/csrc/blake2b.cu",
             replaces="libiop_tpu/bcs/device_blake2b.py:198", max_abs_err=err,
-            ms=time_ms(commit_kernel), plain_ms=time_ms(commit_plain),
+            **timing(commit_kernel), plain_ms=time_ms(commit_plain),
             bound_ms=bms, bound_by=by, library_ms=None,
             shape=f"2^{k + 1} leaves x 192 B + {k + 1} tree levels"))
 
@@ -523,7 +524,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
     rows.append(dict(
         name="fri_fold", route="cuda", source="libiop_tpu_torch/csrc/fri_fold.cu",
         replaces="libiop_tpu/protocols/fri.py:133", max_abs_err=err,
-        ms=time_ms(lambda: fri_fold(F, evals, rows_t, winv, xpow, c)),
+        **timing(lambda: fri_fold(F, evals, rows_t, winv, xpow, c)),
         plain_ms=time_ms(lambda: fri_fold_plain(F, evals, rows_t, winv, xpow,
                                                 c)),
         bound_ms=bms, bound_by=by, library_ms=None,
@@ -545,7 +546,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
         name="field_addsub", route="cuda",
         source="libiop_tpu_torch/csrc/field_addsub.cu",
         replaces="libiop_tpu/fields/prime.py:236", max_abs_err=max(errs),
-        ms=time_ms(lambda: field_addsub(F, "add", a, b)),
+        **timing(lambda: field_addsub(F, "add", a, b)),
         plain_ms=time_ms(lambda: field_addsub_plain(F, "add", a, b)),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"add ({L}, 2^{k + 4}) + ({L}, 2^{k + 4})"))
@@ -570,7 +571,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
         name="lazy_reduce", route="cuda",
         source="libiop_tpu_torch/csrc/lazy_reduce.cu",
         replaces="libiop_tpu/fields/prime.py:402", max_abs_err=err,
-        ms=time_ms(lambda: lazy_reduce(F, lazy, True)),
+        **timing(lambda: lazy_reduce(F, lazy, True)),
         plain_ms=time_ms(lambda: lazy_sum_reduce_plain(F, lazy)),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"lazy_sum_reduce ({L}, 2^{k + 4}) int64"))
@@ -601,7 +602,7 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
         name="ell_matvec", route="cuda",
         source="libiop_tpu_torch/csrc/ell_matvec.cu",
         replaces="libiop_tpu/relations/sparse.py:87", max_abs_err=err,
-        ms=time_ms(lambda: [ell_matvec(F, *c) for c in calls]),
+        **timing(lambda: [ell_matvec(F, *c) for c in calls]),
         plain_ms=time_ms(lambda: [ell_matvec_plain(F, *c) for c in calls]),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"A z, B z, C z, A^T y at 2^{k} (nnz {nnz})"))
@@ -655,6 +656,7 @@ def check_ligero_kernels(F, dev, rng, k):
     if any(errs):
         raise AssertionError(f"place_columns ({F.name}) disagrees with its "
                              "plain twin")
+    check_place_columns_edges(F, dev, rng)
 
     lp = ligero.LigeroIOPParams(F, 128, 2, 0.1, False, n, n - 1)
     H = MultiplicativeCoset(F, lp.systematic_domain_dim)
@@ -680,7 +682,7 @@ def check_ligero_kernels(F, dev, rng, k):
     rows.append(dict(
         name="rs_encode", route="cuda", source="libiop_tpu_torch/csrc/rs_encode.cu",
         replaces="libiop_tpu/protocols/ligero.py:86", max_abs_err=err,
-        ms=time_ms(lambda: rs_encode(F, x, H, D)),
+        **timing(lambda: rs_encode(F, x, H, D)),
         plain_ms=time_ms(lambda: rs_encode_plain(F, x, H, D)),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"{R} rows of 2^{lg} -> 2^{N.bit_length() - 1}"))
@@ -703,11 +705,51 @@ def check_ligero_kernels(F, dev, rng, k):
     rows.append(dict(
         name="row_dot", route="cuda", source="libiop_tpu_torch/csrc/row_dot.cu",
         replaces="libiop_tpu/protocols/ligero.py:92", max_abs_err=max(errs),
-        ms=time_ms(lambda: row_dot(F, a, b)),
+        **timing(lambda: row_dot(F, a, b)),
         plain_ms=time_ms(lambda: row_dot_plain(F, a, b)),
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"{R} rows x 2^{N.bit_length() - 1}, full b"))
     return rows
+
+
+#: phase 3's edge shapes of K13: (nv, n, kind); n and nv not multiples of
+#: 4 (the scalar path and its tail), a sentinel-only map, a permutation
+K13_EDGES = ((37, 103, "partial"), (4097, 4099, "partial"),
+             (1000, 1024, "partial"), (0, 64, "sentinel"),
+             (37, 100, "sentinel"), (1024, 1024, "permutation"))
+
+
+def check_place_columns_edges(F, dev, rng):
+    """Phase 3: K13 against its twin (exact) at K13_EDGES with int32 and
+    int64 maps, each also as a view at an offset of one entry (not 16-byte
+    aligned), one launch a call."""
+    cases = 0
+    for nv, n, kind in K13_EDGES:
+        inv = np.full(n, nv, np.int64)
+        if kind == "permutation":
+            inv = rng.permutation(n)
+        elif kind == "partial":
+            inv[rng.permutation(n)[:nv]] = np.arange(nv)
+        vals = random_elems(F, nv, rng, dev) if nv else \
+            torch.zeros((F.L, 0), dtype=torch.int32, device=dev)
+        for dtype in (torch.int32, torch.int64):
+            whole = torch.from_numpy(np.concatenate([[nv], inv])).to(
+                dtype).to(dev)
+            for idx in (whole[1:].clone(), whole[1:]):
+                before = kernels.LAUNCHES["place_columns"]
+                got = k13.place_columns(vals, idx)
+                if kernels.LAUNCHES["place_columns"] != before + 1:
+                    raise AssertionError("place_columns did not launch K13")
+                if not torch.equal(got, k13.place_columns_plain(vals, idx)):
+                    raise AssertionError(
+                        f"place_columns ({F.name}) disagrees with its twin "
+                        f"at {nv} into {n} ({kind}, {dtype}, offset "
+                        f"{idx.data_ptr() % 16} B)")
+                if kind == "sentinel" and got.any():
+                    raise AssertionError("place_columns: a sentinel-only "
+                                         "map gave a nonzero column")
+                cases += 1
+    log(f"  place_columns edges ({F.L} limbs): {cases} cases equal")
 
 
 def random_words(F, n, rng, dev):
@@ -748,7 +790,7 @@ def check_binary_kernels(dev, rng):
             name="gf2k_mul", route="cuda",
             source="libiop_tpu_torch/csrc/gf2k_mul.cu",
             replaces="libiop_tpu/fields/binary.py:249", max_abs_err=max(errs),
-            ms=time_ms(lambda: gf2k_mul(F, a, b)),
+            **timing(lambda: gf2k_mul(F, a, b)),
             plain_ms=time_ms(lambda: gf2k_mul_plain(F, a, b)),
             bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
             shape=f"mul ({W}, 2^{m}) x ({W}, 2^{m})"))
@@ -774,7 +816,7 @@ def check_binary_kernels(dev, rng):
             name="additive_fft", route="cuda",
             source="libiop_tpu_torch/csrc/additive_fft.cu",
             replaces="libiop_tpu/algebra/subspace.py:172", max_abs_err=max(errs),
-            ms=time_ms(lambda: additive_fft(F, x, tw, sums, False)),
+            **timing(lambda: additive_fft(F, x, tw, sums, False)),
             plain_ms=time_ms(lambda: additive_fft_plain(F, x, tw, sums, False),
                              reps=1, warmup=0),
             bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
@@ -800,7 +842,7 @@ def check_binary_kernels(dev, rng):
             name="fri_fold_additive", route="cuda",
             source="libiop_tpu_torch/csrc/fri_fold_additive.cu",
             replaces="libiop_tpu/protocols/fri.py:240", max_abs_err=max(errs),
-            ms=time_ms(lambda: fri_fold_additive(*args)),
+            **timing(lambda: fri_fold_additive(*args)),
             plain_ms=time_ms(lambda: fri_fold_additive_plain(*args), reps=1,
                              warmup=0),
             bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
@@ -813,12 +855,23 @@ def check_binary_kernels(dev, rng):
 def report(r):
     """Log a kernel row; fail if the kernel disagreed with its twin."""
     log(f"  {r['name']:13s} {r['field']:12s} {r['shape']:44s} err "
-        f"{r['max_abs_err']} kernel {r['ms']:.4f} ms  plain "
-        f"{r['plain_ms']:.2f} ms  bound {r['bound_ms']:.4f} ms "
-        f"({r['bound_by']})")
+        f"{r['max_abs_err']} kernel {r['ms']:.4f} ms (a call "
+        f"{r['call_ms']:.4f})  plain {r['plain_ms']:.2f} ms  bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     if r["max_abs_err"] != 0:
         raise AssertionError(f"{r['name']} ({r['field']}) disagrees with its "
                              "plain twin")
+
+
+def add_library(r, library, name):
+    """Time the one PyTorch call that computes row r's function on the same
+    inputs, as the kernel is timed: library_ms device only, library_call_ms
+    a single call."""
+    t = timing(library)
+    r["library_ms"], r["library_call_ms"] = t["ms"], t["call_ms"]
+    log(f"  {r['name']:13s} {r['field']:12s} library {name} "
+        f"{t['ms']:.4f} ms (a call {t['call_ms']:.4f}) against the kernel's "
+        f"{r['ms']:.4f} ({r['call_ms']:.4f})")
 
 
 def device_time_breakdown(fn, top=12):
@@ -1502,7 +1555,7 @@ def check_fused_dag(F, record):
         name="fused_dag", route="cuda",
         source="libiop_tpu_torch/csrc/fused_dag.cu",
         replaces="libiop_tpu/iop/runtime.py:366", max_abs_err=err,
-        ms=time_ms(lambda: fused_dag(F, tape, inputs, scalars)),
+        **timing(lambda: fused_dag(F, tape, inputs, scalars)),
         plain_ms=time_ms(lambda: fused_dag_plain(F, tape, inputs, scalars),
                          reps=3),
         bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
@@ -1562,10 +1615,10 @@ def check_recorded(F, calls, launched):
     eb, mo, ao = elem_bytes(F), mont_ops(F), addsub_ops(F)
     rows = []
 
-    def row(name, source, replaces, err, ms, plain, nbytes, nops, shape):
+    def row(name, source, replaces, err, times, plain, nbytes, nops, shape):
         bms, by = bound_ms(nbytes, nops)
         r = dict(name=name, route="cuda", source=source, replaces=replaces,
-                 max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=bms,
+                 max_abs_err=err, **times, plain_ms=plain, bound_ms=bms,
                  bound_by=by, library_ms=None, field=F.name, shape=shape)
         report(r)
         rows.append(r)
@@ -1579,7 +1632,7 @@ def check_recorded(F, calls, launched):
         row("poseidon", "libiop_tpu_torch/csrc/poseidon.cu",
             "libiop_tpu/bcs/poseidon.py:263",
             max_abs_err(k9.poseidon_merkle_heap(bp, elems), want),
-            time_ms(lambda: k9.poseidon_merkle_heap(bp, elems)), plain_ms,
+            timing(lambda: k9.poseidon_merkle_heap(bp, elems)), plain_ms,
             eb * (k * n + 2 * n),
             prods * mo + (wide + redcs) * half_mont_ops(F) + adds * ao,
             f"tree of 2^{n.bit_length() - 1} leaves x {k} elements "
@@ -1591,7 +1644,7 @@ def check_recorded(F, calls, launched):
     row("horner", "libiop_tpu_torch/csrc/horner.cu",
         "libiop_tpu/algebra/poly.py:184",
         max_abs_err(horner(F, coeffs, x), want),
-        time_ms(lambda: horner(F, coeffs, x)), plain_ms,
+        timing(lambda: horner(F, coeffs, x)), plain_ms,
         eb * (d + 2 * k), d * k * (mo + ao),
         f"d = {d} at {k} points (m, S = {blocking(d)})")
 
@@ -1600,18 +1653,18 @@ def check_recorded(F, calls, launched):
     row("powers", "libiop_tpu_torch/csrc/powers.cu",
         "libiop_tpu/algebra/domains.py:80",
         max_abs_err(powers(F, x, n, start), powers_plain(F, x, n, start)),
-        time_ms(lambda: powers(F, x, n, start)),
+        timing(lambda: powers(F, x, n, start)),
         time_ms(lambda: powers_plain(F, x, n, start)),
         eb * (n + 2), n * mo, f"table of 2^{n.bit_length() - 1}")
 
-    err, ms, plain, nbytes, nops, shape = 0, 0.0, 0.0, 0, 0, []
+    err, times, plain, nbytes, nops, shape = 0, [], 0.0, 0, 0, []
     for key in ("vanishing_divide", "vanishing_divide_deep"):
         _, (_, f, a, h) = calls[key]
         want, plain_ms = timed_once(
             lambda: vanishing_divide_plain(F, f, a, h))
         err = max(err, *(max_abs_err(g, w) for g, w in zip(
             vanishing_divide(F, f, a, h), want)))
-        ms += time_ms(lambda: vanishing_divide(F, f, a, h))
+        times.append(timing(lambda: vanishing_divide(F, f, a, h)))
         plain += plain_ms
         nb = f.shape[1] // h
         nbytes += eb * 2 * nb * h
@@ -1620,7 +1673,7 @@ def check_recorded(F, calls, launched):
     _, (_, g, neg_a, hm) = calls["vanishing_multiply"]
     err = max(err, max_abs_err(vanishing_multiply(F, g, neg_a, hm),
                                vanishing_multiply_plain(F, g, neg_a, hm)))
-    ms += time_ms(lambda: vanishing_multiply(F, g, neg_a, hm))
+    times.append(timing(lambda: vanishing_multiply(F, g, neg_a, hm)))
     plain += time_ms(lambda: vanishing_multiply_plain(F, g, neg_a, hm))
     d = g.shape[1]
     nbytes += eb * (2 * d + hm)
@@ -1628,7 +1681,8 @@ def check_recorded(F, calls, launched):
     shape.append(f"multiply {d} by 2^{hm.bit_length() - 1}")
     shape = ", ".join(shape)
     row("vanishing", "libiop_tpu_torch/csrc/vanishing.cu",
-        "libiop_tpu/algebra/poly.py:101", err, ms, plain, nbytes, nops, shape)
+        "libiop_tpu/algebra/poly.py:101", err, add_times(times), plain, nbytes,
+        nops, shape)
 
     _, (values, inv) = calls["place_columns"]
     nv, n = values.shape[1], inv.numel()
@@ -1639,12 +1693,17 @@ def check_recorded(F, calls, launched):
         "libiop_tpu/algebra/generic.py:163",
         max_abs_err(k13.place_columns(values, inv),
                     k13.place_columns_plain(values, inv)),
-        time_ms(lambda: k13.place_columns(values, inv)),
+        timing(lambda: k13.place_columns(values, inv)),
         time_ms(lambda: k13.place_columns_plain(values, inv)),
         eb * (nv + n) + 4 * nv, 0, f"({F.L}, {nv}) into {n} columns")
-    rows[-1]["library_ms"] = time_ms(lambda: torch.index_select(padded, 1, inv))
-    log(f"  place_columns {F.name:12s} library index_select "
-        f"{rows[-1]['library_ms']:.4f} ms")
+    add_library(rows[-1], lambda: torch.index_select(padded, 1, inv),
+                "index_select")
+    # the device-only time two ways: the spin-queued events (the row's ms)
+    # and CUPTI's kernel durations
+    rows[-1]["cupti_ms"] = cupti_ms(lambda: k13.place_columns(values, inv),
+                                    n=DEVICE_MAX_CALLS)
+    log(f"  place_columns {F.name:12s} device ms {rows[-1]['ms']:.4f} "
+        f"({rows[-1]['ms_by']}), CUPTI {rows[-1]['cupti_ms']}")
 
     checks = []
     if "rs_encode" in launched:
@@ -1693,7 +1752,7 @@ def check_fractal_recorded(F, calls):
         name="batch_inv", route="cuda",
         source="libiop_tpu_torch/csrc/batch_inv.cu",
         replaces="libiop_tpu/fields/prime.py:447", max_abs_err=max(errs),
-        ms=time_ms(lambda: batch_inv(F, a, c)),
+        **timing(lambda: batch_inv(F, a, c)),
         plain_ms=time_ms(lambda: batch_inv_plain(F, a, c)),
         bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
         paths=("fractal_zk", "fractal"),
@@ -1712,7 +1771,7 @@ def check_fractal_recorded(F, calls):
         replaces="libiop_tpu/protocols/holographic_lincheck.py:134",
         max_abs_err=max_abs_err(p_alpha_m(F, plans, p, r, inv, S),
                                 p_alpha_m_plain(F, plans, p, r, inv, S)),
-        ms=time_ms(lambda: p_alpha_m(F, plans, p, r, inv, S)),
+        **timing(lambda: p_alpha_m(F, plans, p, r, inv, S)),
         plain_ms=time_ms(lambda: p_alpha_m_plain(F, plans, p, r, inv, S)),
         bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
         paths=("fractal_zk", "fractal"),
@@ -1741,7 +1800,7 @@ def check_ligero_binary_recorded(F, calls):
         name="row_dot", route="cuda", source="libiop_tpu_torch/csrc/row_dot.cu",
         replaces="libiop_tpu/protocols/ligero.py:92",
         max_abs_err=max_abs_err(row_dot(F, a, b), row_dot_plain(F, a, b)),
-        ms=time_ms(lambda: row_dot(F, a, b)),
+        **timing(lambda: row_dot(F, a, b)),
         plain_ms=time_ms(lambda: row_dot_plain(F, a, b)),
         bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
         shape=f"GF(2^{32 * W}) a {tuple(a.shape)}, b {tuple(b.shape)}"))
@@ -1758,7 +1817,7 @@ def check_ligero_binary_recorded(F, calls):
         replaces="libiop_tpu/protocols/ligero.py:86",
         max_abs_err=max_abs_err(additive_fft(F, S, tw, sums, inverse),
                                 additive_fft_plain(F, S, tw, sums, inverse)),
-        ms=time_ms(lambda: additive_fft(F, S, tw, sums, inverse)),
+        **timing(lambda: additive_fft(F, S, tw, sums, inverse)),
         plain_ms=time_ms(lambda: additive_fft_plain(F, S, tw, sums, inverse),
                          reps=1, warmup=0),
         bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
@@ -1779,14 +1838,14 @@ def check_binary_recorded(F, calls):
     if missing:
         raise AssertionError(f"{F.name}: no recorded call for {missing}")
     eb, mo = elem_bytes(F), gf_mul_ops(F.W)
-    err, ms, plain, nbytes, nops, shape = 0, 0.0, 0.0, 0, 0, []
+    err, times, plain, nbytes, nops, shape = 0, [], 0.0, 0, 0, []
     for key in ("linearized_divide", "linearized_divide_deep"):
         _, (_, f, terms, h) = calls[key]
         want, plain_ms = timed_once(
             lambda: linearized_divide_plain(F, f, terms, h))
         err = max(err, *(max_abs_err(g, w) for g, w in zip(
             linearized_divide(F, f, terms, h), want)))
-        ms += time_ms(lambda: linearized_divide(F, f, terms, h))
+        times.append(timing(lambda: linearized_divide(F, f, terms, h)))
         plain += plain_ms
         d = f.shape[1]
         # each quotient coefficient: one product and XOR a term below x^h
@@ -1797,7 +1856,7 @@ def check_binary_recorded(F, calls):
     _, (_, g, terms_m, hm) = calls["linearized_multiply"]
     err = max(err, max_abs_err(linearized_multiply(F, g, terms_m, hm),
                                linearized_multiply_plain(F, g, terms_m, hm)))
-    ms += time_ms(lambda: linearized_multiply(F, g, terms_m, hm))
+    times.append(timing(lambda: linearized_multiply(F, g, terms_m, hm)))
     plain += time_ms(lambda: linearized_multiply_plain(F, g, terms_m, hm))
     d = g.shape[1]
     nbytes += eb * (2 * d + hm)
@@ -1807,7 +1866,7 @@ def check_binary_recorded(F, calls):
     r = dict(name="linearized", route="cuda",
              source="libiop_tpu_torch/csrc/linearized.cu",
              replaces="libiop_tpu/algebra/linearized.py:88", max_abs_err=err,
-             ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+             **add_times(times), plain_ms=plain, bound_ms=bms, bound_by=by,
              library_ms=None, field=F.name, shape=", ".join(shape))
     report(r)
     return [r]
@@ -1835,7 +1894,7 @@ def check_gf2_recorded(F, calls):
         bms, by = bound_ms(nbytes, nops)
         rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            max_abs_err=max_abs_err(kernel(), want), ms=time_ms(kernel),
+            max_abs_err=max_abs_err(kernel(), want), **timing(kernel),
             plain_ms=plain_ms, bound_ms=bms, bound_by=by, library_ms=None,
             field=F.name, shape=shape, **extra))
 
@@ -2045,7 +2104,7 @@ def check_bivariate(F, dev, paths, log_s=BIVARIATE_LOG_S,
         err = max(err, max_abs_err(outs[tag], want))
         if tag == "inside" and args[3] != L.order // 3:
             raise AssertionError(f"{label}: x on L found at {args[3]}")
-    ms = time_ms(lambda: bivariate_evals(F, ys, zy, *args))
+    times = timing(lambda: bivariate_evals(F, ys, zy, *args))
     n, eb = L.order, elem_bytes(F)
     ops = (4 * gf_mul_ops(F.W) + 2 * F.W) if binary else \
         (4 * mont_ops(F) + 2 * addsub_ops(F))
@@ -2053,7 +2112,7 @@ def check_bivariate(F, dev, paths, log_s=BIVARIATE_LOG_S,
     r = dict(name=name, route="cuda",
              source="libiop_tpu_torch/csrc/bivariate.cu",
              replaces="libiop_tpu/algebra/bivariate.py:72", max_abs_err=err,
-             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             **times, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
              library_ms=None, field=F.name,
              shape=f"|S| 2^{log_s}, |L| 2^{log_l}, x off and on L",
              paths=(label,))
@@ -2104,6 +2163,39 @@ def four_step_ntt(F, dev, log_n=FOUR_STEP_LOG_N):
                 raise AssertionError(f"K23 disagrees with its twin: {errs}")
             if min(launched.values()) <= 0:
                 raise AssertionError(f"ShardedNTT ran without K23: {launched}")
+
+
+#: phase 17's small plans of K23's unpack and epilogue: (R, C, D, B), C/D
+#: = 1, 2 and 4 and R = D, batches of 3
+FOUR_STEP_MOVE_PLANS = ((64, 8, 8, 1), (64, 8, 4, 3), (64, 16, 4, 1),
+                        (4, 64, 4, 3), (8, 8, 8, 3), (2, 4, 2, 1))
+
+
+def four_step_moves(F, dev):
+    """Phase 17: K23's unpack and epilogue against their twins (exact) on
+    FOUR_STEP_MOVE_PLANS, the shapes of the sharded prove's small
+    transforms (the 4-byte path), one launch a call."""
+    rng = np.random.default_rng(23)
+    for R, C, D, B in FOUR_STEP_MOVE_PLANS:
+        RD, CD = R // D, C // D
+        recv = random_elems(F, D * B * RD * CD, rng, dev).reshape(
+            F.L, D, B, RD, CD).movedim(1, 0).contiguous()
+        g = random_elems(F, D * B * CD * R, rng, dev).reshape(
+            F.L, D, B, CD, R).movedim(1, 0).contiguous()
+        for key, kernel, plain in (
+                ("four_step_unpack", lambda: k23.unpack(F, recv, R),
+                 lambda: k23.unpack_plain(recv, R)),
+                ("four_step_epilogue", lambda: k23.epilogue(F, g, C),
+                 lambda: k23.epilogue_plain(g, C))):
+            before = kernels.LAUNCHES[key]
+            got = kernel()
+            if kernels.LAUNCHES[key] != before + 1:
+                raise AssertionError(f"{key} did not launch K23")
+            if not torch.equal(got, plain()):
+                raise AssertionError(f"{key} ({F.name}) disagrees with its "
+                                     f"twin at R {R}, C {C}, D {D}, B {B}")
+    log(f"  K23 unpack and epilogue ({F.L} limbs) equal their twins at "
+        f"(R, C, D, B) {list(FOUR_STEP_MOVE_PLANS)}")
 
 
 def four_step_twins(F, ntt, coeffs, dev):
@@ -2303,13 +2395,13 @@ def check_four_step_recorded(F, calls):
         r = dict(name=name, route="cuda",
                  source="libiop_tpu_torch/csrc/four_step.cu",
                  replaces="libiop_tpu/parallel/shard_ntt.py:40",
-                 max_abs_err=max_abs_err(got, plain()), ms=time_ms(kernel),
+                 max_abs_err=max_abs_err(got, plain()), **timing(kernel),
                  plain_ms=time_ms(plain), library_ms=None, field=F.name,
                  shape=shape, paths=("aurora_sharded",))
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes, nops)
-        if library is not None:
-            r["library_ms"] = time_ms(library)
         report(r)
+        if library is not None:
+            add_library(r, *library)
         rows.append(r)
 
     _, (_, x, s, D, R, C, sp) = calls["four_step_prologue"]
@@ -2343,14 +2435,15 @@ def check_four_step_recorded(F, calls):
     row("four_step_unpack", lambda: k23.unpack(F, recv, R),
         lambda: k23.unpack_plain(recv, R), eb * 2 * B * R * CD, 0,
         f"({D}, {B}, {RD}, {CD}) -> ({B}, {CD}, {R})",
-        library=lambda: torch.take(recv, flat))
+        library=(lambda: torch.take(recv, flat), "take"))
 
     _, (_, g, C) = calls["four_step_epilogue"]
     D, _, B, CD, R = g.shape
     row("four_step_epilogue", lambda: k23.epilogue(F, g, C),
         lambda: k23.epilogue_plain(g, C), eb * 2 * B * R * C, 0,
         f"({D}, {B}, {CD}, {R}) -> ({B}, {R * C})",
-        library=lambda: g.permute(1, 2, 4, 0, 3).contiguous())
+        library=(lambda: g.permute(1, 2, 4, 0, 3).contiguous(),
+                 "permute().contiguous()"))
     return rows
 
 
@@ -2406,7 +2499,7 @@ def check_ldt_combine(dev, paths, prime_call, binary_call):
                  replaces="libiop_tpu/protocols/ldt_reducer.py:105",
                  max_abs_err=max_abs_err(ldt_combine(*args),
                                          ldt_combine_plain(*args)),
-                 ms=time_ms(lambda: ldt_combine(*args)),
+                 **timing(lambda: ldt_combine(*args)),
                  plain_ms=time_ms(lambda: ldt_combine_plain(*args)),
                  bound_ms=bms, bound_by=by, library_ms=None, field=Fx.name,
                  shape=f"{n} inputs ({ns} submaximal, {distinct} tables) of "
@@ -2490,7 +2583,7 @@ def check_lagrange(F, dev, paths, log_h=LAGRANGE_LOG_H):
         err = max(err, max_abs_err(outs[tag], want))
         if tag == "off":
             plain_ms, scal_off = t, scal
-    ms = time_ms(lambda: lagrange_coeffs(F, hs, ws, scal_off))
+    times = timing(lambda: lagrange_coeffs(F, hs, ws, scal_off))
     n, eb = H.order, elem_bytes(F)
     ops = (3 * gf_mul_ops(F.W) + F.W) if binary else \
         (4 * mont_ops(F) + addsub_ops(F))
@@ -2498,7 +2591,7 @@ def check_lagrange(F, dev, paths, log_h=LAGRANGE_LOG_H):
     r = dict(name=name, route="cuda",
              source="libiop_tpu_torch/csrc/lagrange.cu",
              replaces="libiop_tpu/algebra/generic.py:320", max_abs_err=err,
-             ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+             **times, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
              library_ms=None, field=F.name,
              shape=f"|H| 2^{log_h}, alpha off and on H", paths=(label,))
     report(r)
@@ -2712,6 +2805,7 @@ def main():
         f"{FOUR_STEP_SHARDS} shards on one card")
     for Fx in (F, Fb):
         four_step_ntt(Fx, dev)
+        four_step_moves(Fx, dev)
 
     log(f"phase 18: the sharded Aurora prover at 2^{args.log_n} "
         f"constraints, {MESH_SHARDS} shards on one card")
@@ -2744,6 +2838,8 @@ def main():
         r["launches"] = paths[main][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in paths.items()}
         r.pop("shape")
+    for r in rows:
+        r.setdefault("library_call_ms", None)
     log(smi)
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

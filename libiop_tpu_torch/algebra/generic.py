@@ -8,6 +8,8 @@ binary fields (``is_additive``).
 """
 from __future__ import annotations
 
+import hashlib
+import weakref
 from typing import List
 
 import numpy as np
@@ -94,19 +96,50 @@ def vanishing_derivative_int(H, x: int) -> int:
     return F.mul_ints(H.order % F.p, F.pow_int(x, H.order - 1))
 
 
+#: id of a read-only positions array -> (a weak reference to it, the key of
+#: its contents)
+_FROZEN_POSITIONS: dict = {}
+#: host work of place_columns: contents keyed (copied and digested) and
+#: inverse maps built
+PLACEMENT_STATS = {"keys": 0, "maps": 0}
+
+
+def _positions_key(positions):
+    """The key of the positions' contents.  A read-only numpy array (the
+    IOP objects freeze theirs) is digested at its first call and found by
+    identity afterwards, so a call costs the host O(1); any other sequence
+    is copied and digested at every call."""
+    frozen = isinstance(positions, np.ndarray) and \
+        not positions.flags.writeable
+    if frozen:
+        hit = _FROZEN_POSITIONS.get(id(positions))
+        if hit is not None and hit[0]() is positions:
+            return hit[1]
+    PLACEMENT_STATS["keys"] += 1
+    arr = np.ascontiguousarray(positions, dtype=np.int64)
+    key = (arr.shape, hashlib.blake2b(arr.tobytes(), digest_size=16).digest())
+    if frozen:
+        i = id(positions)
+        _FROZEN_POSITIONS[i] = (weakref.ref(
+            positions, lambda _, i=i: _FROZEN_POSITIONS.pop(i, None)), key)
+    return key
+
+
 def place_columns(values: torch.Tensor, positions, out_size: int):
     """out[..., positions[k]] = values[..., k], zeros elsewhere, as a gather
-    through the memoized inverse placement, whose sentinel nv marks a zero
-    column (kernel K13 on the card)."""
+    through the memoized int32 inverse placement, whose sentinel nv marks
+    a zero column (kernel K13 on the card)."""
     nv = values.shape[-1]
-    key = ("place", out_size, nv, np.asarray(positions, np.int64).tobytes())
 
     def _inverse():
-        inv = np.full(out_size, nv, dtype=np.int64)
-        inv[np.asarray(positions, dtype=np.int64)] = np.arange(nv)
+        PLACEMENT_STATS["maps"] += 1
+        inv = np.full(out_size, nv, dtype=np.int32)
+        inv[np.asarray(positions, dtype=np.int64)] = np.arange(
+            nv, dtype=np.int32)
         return inv
 
-    inv = device_table(key, values.device, _inverse)
+    inv = device_table(("place", out_size, nv, _positions_key(positions)),
+                       values.device, _inverse)
     return _k13.place_columns(values.contiguous(), inv)
 
 

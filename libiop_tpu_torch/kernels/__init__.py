@@ -77,12 +77,24 @@ def host_words(F, values) -> np.ndarray:
                      for v in vals for j in range(W)], dtype=np.uint32)
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t: torch.Tensor) -> int:
+    """A tensor's device address, passed as is to a launcher whose argtypes
+    declare it c_void_p (no ctypes object built a call)."""
+    return t.data_ptr()
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+#: the raw cudaStream_t of the current stream, without building a
+#: torch.cuda.Stream (absent from builds without CUDA)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current stream of ``device`` as an address for a launcher."""
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
 
 
 def raise_on_error(kernel: str, err: int):

@@ -35,6 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+#: (stem, name) -> the launcher, typed once
+_FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
 
@@ -87,7 +89,11 @@ def build_all(verbose: bool = False) -> float:
 
 def launcher(stem: str, name: str, argtypes):
     """The C launcher ``name`` of kernel source ``stem`` (building all
-    sources on first use), typed to return the cudaError_t as an int."""
+    sources on first use), typed to return the cudaError_t as an int.  The
+    first call loads and types it; later calls are one dict lookup."""
+    fn = _FNS.get((stem, name))
+    if fn is not None:
+        return fn
     with _LOCK:
         handle = _LIBS.get(stem)
         if handle is None:
@@ -95,7 +101,8 @@ def launcher(stem: str, name: str, argtypes):
                 build_all()
             handle = _LIBS[stem] = ctypes.CDLL(
                 os.path.join(BUILD_DIR, stem + ".so"))
-    fn = getattr(handle, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+        fn = getattr(handle, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _FNS[(stem, name)] = fn
     return fn

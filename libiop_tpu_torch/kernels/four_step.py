@@ -5,7 +5,7 @@ twins.
 NTTs over the j1 columns of the grid x[j1 + R * j2], twiddles w^(j1 * k2),
 one all-to-all and R-point NTTs; shard s of D holds the j1 columns
 [s * R/D, (s + 1) * R/D).  The NTTs are K2's stages; the four passes between
-them are this kernel, one template with four launch shapes:
+them are this kernel's four launch shapes:
 
 - ``prologue``: coefficients (L, B, d) -> this shard's rows over j2, times
   the coset's shift powers, each row in bit-reversed order: (L, B, R/D, C);
@@ -18,7 +18,13 @@ them are this kernel, one template with four launch shapes:
 - ``epilogue``: the gathered (D, L, B, C/D, R) -> the natural-order
   codeword (L, B, N), X[k1 * C + s * C/D + k2].
 
-CUDA tensors launch the kernel; CPU tensors run the plain twins.
+On the card the prologue and the twiddle carry the Montgomery product (a
+32 x 32 tile a block, word planes through shared memory); the unpack and
+the epilogue are limb-plane permutations that move the int32 limbs as they
+are, one limb plane a grid row and one 32 x 32 tile a block, with 16-byte
+loads and stores where C/D and R are multiples of 4 (4-byte accesses
+otherwise).  CUDA tensors launch the kernel; CPU tensors run the plain
+twins.
 """
 from __future__ import annotations
 

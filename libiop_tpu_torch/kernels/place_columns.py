@@ -1,4 +1,11 @@
-"""K13: column-placement wrapper (csrc/place_columns.cu) and its plain twin."""
+"""K13: column-placement wrapper (csrc/place_columns.cu) and its plain twin.
+
+On the card a thread writes 4 adjacent output columns of 4 limb rows: one
+16-byte read of its map entries, 16 gathers in flight, a 16-byte store a
+row; a column count that is not a multiple of 4, or a map or output that
+is not 16-byte aligned, takes the kernel's scalar path.  The per-call host
+work is the checks, one allocation and the launch (``build.launcher``
+caches the typed launcher)."""
 from __future__ import annotations
 
 import ctypes

@@ -57,6 +57,10 @@ class MultiLincheckVirtualOracle(VirtualOracle):
         self.var_to_sum = np.array(
             [summation_domain.reindex_by_subgroup(variable_domain.dim, v)
              for v in var_to_var], dtype=np.int64)
+        # fixed for the object's life: read-only, so that place_columns
+        # keys their device maps on the arrays themselves
+        self.constraint_to_sum.setflags(write=False)
+        self.var_to_sum.setflags(write=False)
         self._p1_coeffs = None
         self._p2_coeffs = None
         self._p_cw = None

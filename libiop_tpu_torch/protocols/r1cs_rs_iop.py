@@ -193,6 +193,11 @@ class EncodedAurora:
         self.var_reindex = np.array(
             [self.variable_domain.reindex_by_subgroup(self.input_domain.dim, j)
              for j in range(n)], dtype=np.int64)
+        # the witness slots, fixed for the object's life: read-only, so
+        # that place_columns keys their device map on the array itself
+        self.var_reindex.setflags(write=False)
+        self.aux_positions = self.var_reindex[r1cs.num_inputs + 1:]
+        self._aux_positions_dev = {}  # str(device) -> its device copy
 
     def set_index_oracles(self, index_handle, indexed_handles):
         assert self.params.holographic
@@ -224,14 +229,16 @@ class EncodedAurora:
         C."""
         F = self.F
         dev = self.iop.device
-        k = self.r1cs.num_inputs
         n = self.variable_domain.order
         m = self.constraint_domain.order
-        aux_positions = self.var_reindex[k + 1:]
+        aux_positions = self.aux_positions
         f1v_coeffs = ifft_any(F.from_ints([1] + list(primary), dev),
                               self.input_domain)
         f1v_vd = fft_any(f1v_coeffs, self.variable_domain)
-        pos_dev = torch.from_numpy(aux_positions).to(dev)
+        pos_dev = self._aux_positions_dev.get(str(dev))
+        if pos_dev is None:
+            pos_dev = self._aux_positions_dev[str(dev)] = torch.tensor(
+                aux_positions, device=dev)
         fw_prime = place_columns(
             F.sub(F.from_ints(list(auxiliary), dev),
                   f1v_vd.index_select(1, pos_dev)), aux_positions, n)

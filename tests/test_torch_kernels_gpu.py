@@ -349,12 +349,17 @@ def test_vanishing_matches_twin(dev, field, h, nb, d):
 
 def test_place_columns_matches_twin(dev):
     """K13 over both limb counts: a sentinel-only map (every column zero),
-    a full permutation and a partial placement, each with int32 and int64
-    indices."""
+    a full permutation and partial placements, n and nv multiples of 4 (the
+    16-byte path) or not (37 into 103, 4,097 into 4,099: the scalar path
+    and its tail), each with int32 and int64 indices, contiguous and as a
+    view one entry into a larger map (not 16-byte aligned)."""
     for field in FIELDS.values():
         F = field()
-        for kind in ("sentinel_only", "permutation", "partial"):
-            nv, n = (37, 37) if kind == "permutation" else (37, 100)
+        for kind, nv, n in (("sentinel_only", 37, 100),
+                            ("permutation", 37, 37),
+                            ("permutation", 1024, 1024),
+                            ("partial", 37, 100), ("partial", 37, 103),
+                            ("partial", 4097, 4099), ("partial", 1000, 1024)):
             rng = np.random.default_rng(nv + n)
             values = _elems((3, nv), 70, dev, F)
             inv = np.full(n, nv, np.int64)
@@ -363,14 +368,18 @@ def test_place_columns_matches_twin(dev):
             elif kind == "partial":
                 inv[rng.permutation(n)[:nv]] = np.arange(nv)
             for index_dtype in (torch.int32, torch.int64):
-                idx = torch.from_numpy(inv).to(index_dtype).to(dev)
-                before = LAUNCHES["place_columns"]
-                got = place_columns(values, idx)
-                torch.cuda.synchronize()
-                case = (F.name, kind, index_dtype)
-                assert LAUNCHES["place_columns"] == before + 1, case
-                assert torch.equal(got, place_columns_plain(values, idx)), case
-                assert kind != "sentinel_only" or not got.any(), case
+                whole = torch.from_numpy(np.concatenate([[nv], inv])).to(
+                    index_dtype).to(dev)
+                for view in (False, True):
+                    idx = whole[1:] if view else whole[1:].clone()
+                    before = LAUNCHES["place_columns"]
+                    got = place_columns(values, idx)
+                    torch.cuda.synchronize()
+                    case = (F.name, kind, nv, n, index_dtype, view)
+                    assert LAUNCHES["place_columns"] == before + 1, case
+                    assert torch.equal(got,
+                                       place_columns_plain(values, idx)), case
+                    assert kind != "sentinel_only" or not got.any(), case
 
 
 def test_rs_encode_matches_twin(dev):
@@ -866,17 +875,19 @@ def test_fri_snark_on_the_card_gives_the_cpu_bytes(dev):
 
 
 def test_four_step_matches_twins(dev):
-    """K23's four launch shapes against their twins on a 2^12 plan (R = C
-    = 64) over both widths, D = 1, 2, 4, 8 shards and batches of 1-3, the
-    prologue with and without the shift and with d < N."""
+    """K23's four launch shapes against their twins on 2^12 plans over both
+    widths: R = C = 64 on D = 1, 2, 4, 8 shards and batches of 1-3, and
+    R = 64, C = 8 on D = 8 and 4 (C/D = 1 and 2: the unpack's and the
+    epilogue's 4-byte path); the prologue with and without the shift and
+    with d < N."""
     from libiop_tpu_torch.kernels import four_step
-    R = C = 64
-    N = R * C
     for F in (f() for f in FIELDS.values()):
-        dom = MultiplicativeCoset(F, 12, 19)
-        sp, W = dom.shift_powers(dev), dom.generator_powers(dev)
-        for D, B in ((1, 1), (2, 3), (4, 1), (8, 2)):
-            case = (F.name, D, B)
+        for R, C, D, B in ((64, 64, 1, 1), (64, 64, 2, 3), (64, 64, 4, 1),
+                           (64, 64, 8, 2), (64, 8, 8, 1), (64, 8, 4, 3)):
+            N = R * C
+            dom = MultiplicativeCoset(F, N.bit_length() - 1, 19)
+            sp, W = dom.shift_powers(dev), dom.generator_powers(dev)
+            case = (F.name, R, C, D, B)
             for d in (N, N - 333):
                 x = _elems((B, d), d, dev, F)
                 for s in range(D):
