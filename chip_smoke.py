@@ -9,7 +9,9 @@ Phases (any failure exits non-zero and prints no result line):
  3. hold each field kernel K1-K7 and K13-K15 (and K3 on salted zk leaves)
     against its plain PyTorch twin on the card at the main paths' shapes
     (exact equality), over edwards_Fr (6-word instantiations) and
-    alt_bn128_Fr (8-word), and time both with CUDA events; K13 also at
+    alt_bn128_Fr (8-word), and time both with CUDA events (K2: the passes
+    of ntt_plan over one transform of 2^(log_n + 3), forward and inverse
+    tables, timed device-only in place); K13 also at
     column counts that are not multiples of 4, a sentinel-only map, int32
     and int64 maps, aligned and at an offset;
  4. golden: the Aurora proofs of the reference's golden configuration,
@@ -29,8 +31,9 @@ Phases (any failure exits non-zero and prints no result line):
     zk DAG;
  8. Ligero prove + verify at 2^log_n constraints with bench.py's
     configuration over edwards_Fr with BLAKE2b, non-zk then zk, the same
-    checks; then K9-K15 against their twins on the largest input each got
-    on the paths of each field (recorded during the paths);
+    checks; then K2 and K9-K15 against their twins on the largest input
+    each got on the paths of each field (recorded during the paths; K2's
+    is the zk codeword's transform);
  9. Aurora over GF(2^192) (bench.py's aurora_gf192 stage: 15 inputs,
     security 128, RS extra 2, FRI localization 1, pow 20 bits, example
     default_rng(0)) at 2^log_n constraints, non-zk, the same checks; the
@@ -40,7 +43,9 @@ Phases (any failure exits non-zero and prints no result line):
     additive golden digests (GF(2^64), non-zk and zk);
 10. the same GF(2^192) path with make_zk=True (prover rng default_rng(0)),
     then K8 on its zk DAG and K18 on the largest and the deepest division
-    and the largest product the binary paths gave it;
+    and the largest product the binary paths gave it (the row sums the
+    three; ``deep_division`` times the deep one on its own, with its
+    launches, segment, segments and dependent steps);
 11. Fractal over edwards_Fr at 2^log_n constraints with bench.py's
     configuration (bench.py:246-300: security 128, RS extra 2, FRI
     localization 2, BLAKE2b, example default_rng(0) with 15 inputs,
@@ -63,7 +68,8 @@ Phases (any failure exits non-zero and prints no result line):
     K11 and K21 against their twins on the largest call each got on the
     GF(2^192) paths (phases 9, 10, 13) and on the GF(2^64) ones (phase 4's
     gf64 Fractal and Ligero pins, phase 12); the binary paths of phases
-    9-13 must launch them; phase 4 also proves the JAX package's Fractal
+    9-13 must launch them; K17 at the call shape the GF(2^192) paths made
+    most often (``calls_by_shape`` counts them all); phase 4 also proves the JAX package's Fractal
     over GF(2^64) (tests/test_additive_aurora.py:139-157) to its pins;
 14. the FRI SNARK (fri_snark_prover / fri_snark_verifier) over edwards_Fr
     with BLAKE2b: security 128, RS extra 2, localization parameter 2, 10
@@ -136,6 +142,7 @@ from libiop_tpu_torch.fields import limbs  # noqa: E402
 from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,  # noqa: E402
                                            mont_reduce_wide_plain, mul_plain)
 from libiop_tpu_torch.algebra import domains, generic, poly  # noqa: E402
+from libiop_tpu_torch.algebra import fft as alg_fft  # noqa: E402
 from libiop_tpu_torch.algebra import linearized as alg_linearized  # noqa: E402
 from libiop_tpu_torch.algebra import subspace  # noqa: E402
 from libiop_tpu_torch.fields import prime as prime_mod  # noqa: E402
@@ -149,7 +156,7 @@ from libiop_tpu_torch.kernels.gf2k_mul import (  # noqa: E402
     gf2k_square_plain)
 from libiop_tpu_torch.kernels.linearized import (  # noqa: E402
     linearized_divide, linearized_divide_plain, linearized_multiply,
-    linearized_multiply_plain)
+    linearized_multiply_plain, scan_segment)
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
 from libiop_tpu_torch.iop import runtime  # noqa: E402
 from libiop_tpu_torch.kernels import build  # noqa: E402
@@ -174,7 +181,8 @@ from libiop_tpu_torch.kernels.lagrange import (  # noqa: E402
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce  # noqa: E402
 from libiop_tpu_torch.kernels.mont_mul import mont_mul  # noqa: E402
 from libiop_tpu_torch.kernels import place_columns as k13  # noqa: E402
-from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain  # noqa: E402
+from libiop_tpu_torch.kernels.ntt import (ntt_plan, ntt_stages,  # noqa: E402
+                                          ntt_stages_plain)
 from libiop_tpu_torch.kernels.p_alpha_m import (  # noqa: E402
     p_alpha_m, p_alpha_m_gf2_plain, p_alpha_m_plain)
 from libiop_tpu_torch.kernels.powers import (  # noqa: E402
@@ -376,11 +384,23 @@ def bound_ms(nbytes, nops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def ntt_products(n):
-    """Montgomery products of a radix-2 NTT of size n: each butterfly whose
-    twiddle is not 1 (stage m uses m twiddles, n/(2m) butterflies each)."""
+def ntt_products(n, first_m=1):
+    """Montgomery products of the radix-2 NTT stages m = first_m, ..., n/2
+    of size n: each butterfly whose twiddle is not 1 (stage m uses m
+    twiddles, n/(2m) butterflies each)."""
     return sum((m - 1) * (n // (2 * m))
-               for m in (1 << s for s in range(n.bit_length() - 1)))
+               for m in (1 << s for s in range(n.bit_length() - 1))
+               if m >= first_m)
+
+
+def ntt_work(F, rows, n, first_m=1):
+    """(bytes, instructions) of the stages m = first_m, ..., n/2 over rows
+    of n: the array read and written once and the n/2 twiddles read; a
+    product a butterfly whose twiddle is not 1, an add and a sub each."""
+    stages = (n // first_m).bit_length() - 1
+    return (elem_bytes(F) * (2 * rows * n + n // 2),
+            rows * (ntt_products(n, first_m) * mont_ops(F)
+                    + stages * n * addsub_ops(F)))
 
 
 def add_times(rows_times):
@@ -437,42 +457,29 @@ def check_kernels(F, dev, rng, cs_main, blake2b=True):
         bound_ms=bms, bound_by=by, library_ms=None,
         shape=f"({L}, 2^{k + 3}) x ({L}, 2^{k + 3})"))
 
-    # K2: the k+3 butterfly stages of one NTT of size 2^(k+3)
+    # K2: the k+3 butterfly stages of one NTT of size 2^(k+3), in the
+    # passes of ntt_plan; timed in place (a pass takes the same device time
+    # whatever field elements it holds)
     dim = k + 3
     N = 1 << dim
     dom = MultiplicativeCoset(F, dim, shift=F.multiplicative_generator)
     W = dom.generator_powers(dev)
     x0 = random_elems(F, N, rng, dev).reshape(F.L, 1, N)
-    buf = torch.empty_like(x0)
-
-    def net_kernel():
-        x = buf
-        m = 1
-        while m < N:
-            x = ntt_stage(F, x, W, m)
-            m *= 2
-        return x
-
-    def net_plain():
-        x = x0
-        m = 1
-        while m < N:
-            x = ntt_stage_plain(F, x, W, m)
-            m *= 2
-        return x
-
+    buf = x0.clone()
+    err = max_abs_err(ntt_stages(F, buf, W, 1), ntt_stages_plain(F, x0, W, 1))
+    winv = dom.inverse_generator_powers(dev)
     buf.copy_(x0)
-    err = max_abs_err(net_kernel(), net_plain())
-    # each butterfly adds and subtracts; only twiddles other than 1 multiply
-    bms, by = bound_ms(2 * ELEM_BYTES * N + ELEM_BYTES * N // 2,
-                       ntt_products(N) * MONT_OPS + dim * N * ADDSUB_OPS)
+    err = max(err, max_abs_err(ntt_stages(F, buf, winv, 1),
+                               ntt_stages_plain(F, x0, winv, 1)))
+    bms, by = bound_ms(*ntt_work(F, 1, N))
     rows.append(dict(
         name="ntt_stage", route="cuda", source="libiop_tpu_torch/csrc/ntt.cu",
         replaces="libiop_tpu/algebra/fft.py:103", max_abs_err=err,
-        **timing(net_kernel, setup=lambda: buf.copy_(x0)),
-        plain_ms=time_ms(net_plain),
+        **timing(lambda: ntt_stages(F, buf, W, 1)),
+        plain_ms=time_ms(lambda: ntt_stages_plain(F, x0, W, 1)),
         bound_ms=bms, bound_by=by, library_ms=None,
-        shape=f"{dim} stages over N = 2^{dim} (one NTT)"))
+        shape=f"{dim} stages over N = 2^{dim} (one NTT, forward and "
+              f"inverse tables) in {len(ntt_plan(N, 1))} passes"))
 
     if blake2b:
         # K3: round-1 leaves of the non-zk path (2^(k+1) leaves of 4 oracles x
@@ -1209,6 +1216,10 @@ _RECORDED = [
      lambda F, values, src, dst: values.shape[1] * dst.order),
     (ligero, "row_dot", "row_dot", lambda F, a, b: a.numel()),
     (common, "row_dot", "row_dot", lambda F, a, b: a.numel()),
+    # K2 as fft calls it: the most butterflies
+    (alg_fft, "ntt_stages", "ntt_stages",
+     lambda F, x, W, first_m: x.shape[1] * x.shape[2]
+     * ((x.shape[2] // first_m).bit_length() - 1)),
     (alg_linearized, "linearized_divide", "linearized_divide",
      lambda F, f, terms, h: f.numel()),
     (alg_linearized, "linearized_divide", "linearized_divide_deep",
@@ -1234,11 +1245,30 @@ _RECORDED = [
     (k23, "epilogue", "four_step_epilogue", lambda F, g, C: g.numel())]
 
 
+#: wrappers whose calls are counted by shape: (module, name, record key,
+#: the shape of a call); record[key][shape] = [calls, the first call's
+#: args].  K17's transforms are thousands of small calls on the binary
+#: paths: its most frequent shape is a row of its own
+_COUNTED = [
+    (subspace, "_k17", "additive_fft_shapes",
+     lambda F, S, tw, sums, inverse=False: (
+         S.shape[1] if S.ndim == 3 else 1, S.shape[-1], bool(inverse)))]
+
+
 @contextlib.contextmanager
 def kernel_calls(record):
     """Keep, per record key, the arguments of the largest call of its
-    wrapper in record[key] as (size, args)."""
+    wrapper in record[key] as (size, args), and count the calls of the
+    _COUNTED wrappers by shape."""
     saved = []
+
+    def counter(key, fn, shape_of):
+        def counted(*args, **kw):
+            entry = record.setdefault(key, {}).setdefault(
+                shape_of(*args, **kw), [0, args + tuple(kw.values())])
+            entry[0] += 1
+            return fn(*args, **kw)
+        return counted
 
     def spy(key, fn, size_of):
         def recorded(*args, **kw):
@@ -1252,6 +1282,10 @@ def kernel_calls(record):
         fn = getattr(mod, name)
         saved.append((mod, name, fn))
         setattr(mod, name, spy(key, fn, size_of))
+    for mod, name, key, shape_of in _COUNTED:
+        fn = getattr(mod, name)
+        saved.append((mod, name, fn))
+        setattr(mod, name, counter(key, fn, shape_of))
     try:
         yield
     finally:
@@ -1591,7 +1625,8 @@ def poseidon_work(bp, k: int, n: int):
 
 
 #: the kernel each record key of _RECORDED belongs to
-_RECORD_KERNEL = {"horner": "horner", "powers": "powers",
+_RECORD_KERNEL = {"ntt_stages": "ntt_stage", "horner": "horner",
+                  "powers": "powers",
                   "vanishing_divide": "vanishing",
                   "vanishing_divide_deep": "vanishing",
                   "vanishing_multiply": "vanishing",
@@ -1601,12 +1636,12 @@ _RECORD_KERNEL = {"horner": "horner", "powers": "powers",
 
 
 def check_recorded(F, calls, launched):
-    """Phase 8: K9-K15 against their twins on the largest call of each that
-    the paths over F made.  ``launched`` holds the kernels those paths
+    """Phase 8: K2 and K9-K15 against their twins on the largest call of each
+    that the paths over F made.  ``launched`` holds the kernels those paths
     launched; each of their record keys must be there (K9's only where a
     Poseidon path ran, K14's and K15's where a Ligero path ran), or the
-    comparison would be lost without a sign.  K9-K13 give the kernels
-    line's rows (K13's with index_select as its library call); K14 and
+    comparison would be lost without a sign.  K2 and K9-K13 give the
+    kernels line's rows (K13's with index_select as its library call); K14 and
     K15, whose rows phase 3 gives, are logged."""
     missing = [key for key, name in _RECORD_KERNEL.items()
                if name in launched and key not in calls]
@@ -1622,6 +1657,23 @@ def check_recorded(F, calls, launched):
                  bound_by=by, library_ms=None, field=F.name, shape=shape)
         report(r)
         rows.append(r)
+
+    # K2 on the paths' largest transform (the zk codeword), in place on a
+    # copy of the recorded array (which holds that call's output)
+    _, (_, xr, Wr, first_m) = calls["ntt_stages"]
+    _, nrows, N = xr.shape
+    x0 = xr.clone()
+    want, plain_ms = timed_once(lambda: ntt_stages_plain(F, x0, Wr, first_m))
+    buf = x0.clone()
+    err = max_abs_err(ntt_stages(F, buf, Wr, first_m), want)
+    del want
+    row("ntt_stage", "libiop_tpu_torch/csrc/ntt.cu",
+        "libiop_tpu/algebra/fft.py:103", err,
+        timing(lambda: ntt_stages(F, buf, Wr, first_m)), plain_ms,
+        *ntt_work(F, nrows, N, first_m),
+        f"{nrows} row(s) of 2^{N.bit_length() - 1} from stage {first_m} in "
+        f"{len(ntt_plan(N, first_m))} passes (the paths' largest call)")
+    del x0, buf
 
     if "poseidon" in launched:
         bp, elems = calls["poseidon_merkle_heap"][1]
@@ -1827,9 +1879,50 @@ def check_ligero_binary_recorded(F, calls):
     return rows
 
 
+def check_k17_frequent(F, calls):
+    """Phase 13: K17 against its twin at the call shapes (rows, n,
+    inverse) the GF(2^192) paths made most often (every shape tied at the
+    top count), timed device-only: the rows the redesign order of K17
+    rests on (its 2^20 row of phase 3 is the paths' largest call, not
+    necessarily their usual one)."""
+    shapes = calls["additive_fft_shapes"]
+    top = max(count for count, _ in shapes.values())
+    by_shape = {f"{k[0]}x2^{k[1].bit_length() - 1}{' inv' if k[2] else ''}":
+                v[0] for k, v in sorted(shapes.items(),
+                                        key=lambda kv: -kv[1][0])}
+    W, eb = F.W, elem_bytes(F)
+    rows = []
+    for (R, n, inverse), (count, (_, S, tw, sums, _)) in sorted(
+            shapes.items()):
+        if count != top:
+            continue
+        m = n.bit_length() - 1
+        passes = sum(max(0, m - 1 - j) for j in range(m))
+        bms, by = bound_ms(eb * 2 * R * n + eb * 3 * n,
+                           R * (m * (n + n // 2) * gf_mul_ops(W)
+                                + passes * (n // 4) * 3 * W))
+        r = dict(
+            name="additive_fft", route="cuda",
+            source="libiop_tpu_torch/csrc/additive_fft.cu",
+            replaces="libiop_tpu/algebra/subspace.py:172",
+            max_abs_err=max_abs_err(
+                additive_fft(F, S, tw, sums, inverse),
+                additive_fft_plain(F, S, tw, sums, inverse)),
+            **timing(lambda: additive_fft(F, S, tw, sums, inverse)),
+            plain_ms=time_ms(
+                lambda: additive_fft_plain(F, S, tw, sums, inverse)),
+            bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+            calls_of_shape=count, calls_by_shape=by_shape,
+            shape=f"{'IFFT' if inverse else 'FFT'} of {R} row(s) of 2^{m}, "
+                  f"{count} calls on the gf192 paths (their most frequent)")
+        report(r)
+        rows.append(r)
+    return rows
+
+
 def check_binary_recorded(F, calls):
     """Phase 10: K18 against its twin on the largest and the deepest
-    division (most chunks of h/2, one launch each) and the largest product
+    division (most chunks of h/2: the blocked scan) and the largest product
     the binary paths gave it.  The paths must also have called K7, K10 and
     K11 (their GF(2^k) instantiations, held to their twins in phase 13)."""
     missing = [k for k in ("linearized_divide", "linearized_divide_deep",
@@ -1843,16 +1936,29 @@ def check_binary_recorded(F, calls):
         _, (_, f, terms, h) = calls[key]
         want, plain_ms = timed_once(
             lambda: linearized_divide_plain(F, f, terms, h))
+        before = kernels.LAUNCHES["linearized"]
         err = max(err, *(max_abs_err(g, w) for g, w in zip(
             linearized_divide(F, f, terms, h), want)))
+        launches = kernels.LAUNCHES["linearized"] - before
         times.append(timing(lambda: linearized_divide(F, f, terms, h)))
         plain += plain_ms
         d = f.shape[1]
         # each quotient coefficient: one product and XOR a term below x^h
         nbytes += eb * 2 * d
         nops += (d - h) * len(terms) * (mo + F.W)
-        shape.append(f"divide {d} by 2^{h.bit_length() - 1} "
-                     f"({-(-(d - h) // max(1, h // 2))} chunks)")
+        chunks = -(-(d - h) // max(1, h // 2))
+        shape.append(f"divide {d} by 2^{h.bit_length() - 1} ({chunks} "
+                     "chunks)")
+    # the deep division on its own: the scan's segments and dependent steps
+    # (two segment solves of B/(h/2) chunk steps and S - 1 carry steps)
+    B = scan_segment(d, h)
+    S = -(-(d - h) // B) if B else 0
+    deep = dict(times[-1], launches=launches, segment=B, segments=S,
+                dependent_steps=2 * B // max(1, h // 2) + S - 1 if B
+                else chunks, shape=shape[-1])
+    deep["bound_ms"], deep["bound_by"] = bound_ms(
+        eb * 2 * d, (d - h) * len(terms) * (mo + F.W))
+    log(f"  linearized deep division {json.dumps(deep)}")
     _, (_, g, terms_m, hm) = calls["linearized_multiply"]
     err = max(err, max_abs_err(linearized_multiply(F, g, terms_m, hm),
                                linearized_multiply_plain(F, g, terms_m, hm)))
@@ -1867,7 +1973,8 @@ def check_binary_recorded(F, calls):
              source="libiop_tpu_torch/csrc/linearized.cu",
              replaces="libiop_tpu/algebra/linearized.py:88", max_abs_err=err,
              **add_times(times), plain_ms=plain, bound_ms=bms, bound_by=by,
-             library_ms=None, field=F.name, shape=", ".join(shape))
+             library_ms=None, field=F.name, shape=", ".join(shape),
+             deep_division=deep)
     report(r)
     return [r]
 
@@ -2785,6 +2892,7 @@ def main():
     del record
     for Fx in (Fg, Fl):
         rows += check_gf2_recorded(Fx, calls[Fx.name])
+    rows += check_k17_frequent(Fg, calls[Fg.name])
     ldt_calls = (calls[F.name]["ldt_combine"], calls[Fl.name]["ldt_combine"])
     del calls
 

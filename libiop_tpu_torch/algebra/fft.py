@@ -4,8 +4,9 @@ Port of libiop_tpu/algebra/fft.py (``_fft_impl`` / ``_ifft_impl`` /
 ``ifft_of_known_degree``): natural-order evaluations in and out, iterative
 decimation in time over bit-reversed input, degree-aware (a polynomial with
 d <= N coefficients starts at stage m = N/d after duplicating each
-coefficient N/d times).  Each butterfly stage is kernel K2; the glue (bit
-reversal, duplication, shift and 1/N scaling with K1) is PyTorch.
+coefficient N/d times).  The butterfly stages are kernel K2, at most two
+multi-stage passes a transform; the glue (bit reversal, duplication, shift
+and 1/N scaling with K1) is PyTorch.
 
 Data is (L, *batch, N) Montgomery limbs.
 
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.ntt import ntt_stage
+from ..kernels.ntt import ntt_stages
 from ..parallel.mesh import active_mesh
 from .domains import MultiplicativeCoset, bitrev_permutation, device_table
 
@@ -41,11 +42,7 @@ def _bitrev_index(n: int, device) -> torch.Tensor:
 def _butterfly_stages(F, x, W, N: int, first_m: int):
     """Stages m = first_m, 2*first_m, ..., N/2 over x (L, *batch, N)."""
     lead = x.shape[:-1]
-    x = x.reshape(F.L, -1, N).contiguous()
-    m = first_m
-    while m < N:
-        x = ntt_stage(F, x, W, m)
-        m *= 2
+    x = ntt_stages(F, x.reshape(F.L, -1, N).contiguous(), W, first_m)
     return x.reshape(lead + (N,))
 
 

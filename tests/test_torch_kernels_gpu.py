@@ -35,7 +35,7 @@ from libiop_tpu_torch.kernels.lagrange import (lagrange_coeffs,
                                                lagrange_coeffs_plain)
 from libiop_tpu_torch.kernels.lazy_reduce import lazy_reduce
 from libiop_tpu_torch.kernels.mont_mul import mont_mul
-from libiop_tpu_torch.kernels.ntt import ntt_stage, ntt_stage_plain
+from libiop_tpu_torch.kernels.ntt import ntt_plan, ntt_stages, ntt_stages_plain
 from libiop_tpu_torch.kernels.horner import (horner, horner_gf2_plain,
                                              horner_plain)
 from libiop_tpu_torch.kernels.poseidon import (poseidon_hash_columns,
@@ -124,21 +124,33 @@ def test_mont_mul_matches_twin(dev, field, shape_a, shape_b):
     assert torch.equal(mont_mul(F, b, a), got)
 
 
-@pytest.mark.parametrize("rows,N", [(1, 2), (3, 64), (2, 1 << 12)])
-def test_ntt_stages_match_twin(dev, field, rows, N):
+#: (rows, N, first_m) of K2's passes: N below, at and twice the tile T =
+#: 2^12 (one pass, one, two); 2^20 with 3 rows; first_m at and above T
+#: (the column pass alone); a degree-aware start inside the tile
+NTT_GROUPS = {
+    "below_at_twice_tile": [(1, 2, 1), (3, 64, 1), (2, 1 << 12, 1),
+                            (1, 1 << 13, 1)],
+    "2^20_rows_3": [(3, 1 << 20, 1), (1, 1 << 20, 4)],
+    "first_m_at_or_above_tile": [(2, 1 << 13, 1 << 12), (1, 1 << 16, 1 << 13),
+                                 (2, 1 << 14, 4)],
+}
+
+
+@pytest.mark.parametrize("group", sorted(NTT_GROUPS))
+def test_ntt_stages_match_twin(dev, field, group):
+    """K2's passes equal the twin's stage loop, forward and inverse tables,
+    one launch a pass of ntt_plan."""
     F = field
-    dom = MultiplicativeCoset(F, N.bit_length() - 1, 19)
-    W = dom.generator_powers(dev)
-    x = _elems((rows, N), 3, dev, F)
-    y = x.clone()
-    m = 1
-    while m < N:
-        want = ntt_stage_plain(F, x, W, m)
-        y = ntt_stage(F, y, W, m)
-        torch.cuda.synchronize()
-        assert torch.equal(y, want)
-        x = want
-        m *= 2
+    for rows, N, first_m in NTT_GROUPS[group]:
+        dom = MultiplicativeCoset(F, N.bit_length() - 1, 19)
+        x = _elems((rows, N), 3, dev, F)
+        for W in (dom.generator_powers(dev), dom.inverse_generator_powers(dev)):
+            want = ntt_stages_plain(F, x, W, first_m)
+            before = LAUNCHES["ntt_stage"]
+            got = ntt_stages(F, x.clone(), W, first_m)
+            torch.cuda.synchronize()
+            assert LAUNCHES["ntt_stage"] - before == len(ntt_plan(N, first_m))
+            assert torch.equal(got, want), (F.name, rows, N, first_m)
 
 
 @pytest.mark.parametrize("msg_bytes,digest_bytes,tag", [
@@ -476,23 +488,43 @@ def test_additive_fft_matches_twin(dev):
                 subspace.additive_fft(x, D), D), x), (name, D.dim)
 
 
-def test_linearized_matches_twin(dev):
+def test_linearized_matches_twin(dev, monkeypatch):
     """K18: division (one and many chunks, an uneven last chunk) and
-    multiplication by Z of subspaces of 2, 16 and 2^10 points."""
+    multiplication by Z of subspaces of 2, 16, 2^7 and 2^10 points.  The
+    blocked scan (h <= 2^7) at the witness's deep division (h = 16 over
+    65,648 and 65,645 coefficients), at segment edges (the quotient one
+    segment, one segment and one position, a bottom segment of one
+    position) and at segment lengths other than scan_segment's; h = 2^7
+    over gf256 keeps its nibble tables in device memory; h = 2^10 takes a
+    launch a chunk."""
     from libiop_tpu_torch.algebra.generic import linearized_vanishing
-    for name in ("gf64", "gf192"):
+    from libiop_tpu_torch.kernels import linearized as k18
+    planned = k18.scan_segment
+    for name, dim, d, segment in (
+            [(n, dim, d, None) for n in ("gf64", "gf192")
+             for dim, d in ((1, 9), (4, 17), (4, 300), (10, 2 * 1024 - 1),
+                            (10, 3000), (4, 16 + 1024), (4, 16 + 1024 + 1),
+                            (4, 16 + 2 * 1024 + 1), (7, 5000))]
+            + [("gf192", 4, 65648, None), ("gf192", 4, 65645, None),
+               ("gf192", 1, 9, 2), ("gf192", 1, 9, 8), ("gf192", 4, 300, 16),
+               ("gf192", 4, 16 + 3 * 64 + 5, 64), ("gf256", 7, 5000, None),
+               ("gf256", 4, 65648, None)]):
         Fb = getattr(binary, name)()
-        for dim, d in ((1, 9), (4, 17), (4, 300), (10, 2 * 1024 - 1),
-                       (10, 3000)):
-            H = subspace.AffineSubspace(Fb, dim, shift=1 << (dim + 3))
-            Z = linearized_vanishing(H)
-            terms = Z.coeffs_dense_positions()
-            below = [(g, c) for g, c in terms if g < H.order]
-            f = _gf_elems(Fb, (d,), d, dev)
-            got = linearized_divide(Fb, f, below, H.order)
-            want = linearized_divide_plain(Fb, f, below, H.order)
-            assert all(torch.equal(g, w) for g, w in zip(got, want)), \
-                (name, dim, d)
+        H = subspace.AffineSubspace(Fb, dim, shift=1 << (dim + 3))
+        Z = linearized_vanishing(H)
+        terms = Z.coeffs_dense_positions()
+        below = [(g, c) for g, c in terms if g < H.order]
+        f = _gf_elems(Fb, (d,), d, dev)
+        monkeypatch.setattr(k18, "scan_segment", planned if segment is None
+                            else lambda d, h, B=segment: B)
+        before = LAUNCHES["linearized"]
+        got = linearized_divide(Fb, f, below, H.order)
+        torch.cuda.synchronize()
+        assert LAUNCHES["linearized"] > before
+        want = linearized_divide_plain(Fb, f, below, H.order)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)), \
+            (name, dim, d, segment)
+        if d <= 3000:
             assert torch.equal(linearized_multiply(Fb, f, terms, H.order),
                                linearized_multiply_plain(Fb, f, terms,
                                                          H.order))
