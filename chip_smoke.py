@@ -33,7 +33,8 @@ Phases (any failure exits non-zero and prints no result line):
     configuration over edwards_Fr with BLAKE2b, non-zk then zk, the same
     checks; then K2 and K9-K15 against their twins on the largest input
     each got on the paths of each field (recorded during the paths; K2's
-    is the zk codeword's transform);
+    is the zk codeword's transform), and K3 and K11 at the shape those
+    paths called them with most often (``calls_by_shape``);
  9. Aurora over GF(2^192) (bench.py's aurora_gf192 stage: 15 inputs,
     security 128, RS extra 2, FRI localization 1, pow 20 bits, example
     default_rng(0)) at 2^log_n constraints, non-zk, the same checks; the
@@ -69,8 +70,10 @@ Phases (any failure exits non-zero and prints no result line):
     GF(2^192) paths (phases 9, 10, 13) and on the GF(2^64) ones (phase 4's
     gf64 Fractal and Ligero pins, phase 12); the binary paths of phases
     9-13 must launch them; K17 at the call shape the GF(2^192) paths made
-    most often (``calls_by_shape`` counts them all); phase 4 also proves the JAX package's Fractal
-    over GF(2^64) (tests/test_additive_aurora.py:139-157) to its pins;
+    most often (``calls_by_shape`` counts them all), K19 on their largest
+    fold, and K16 and K11 at their most frequent shapes on those paths;
+    phase 4 also proves the JAX package's Fractal over GF(2^64)
+    (tests/test_additive_aurora.py:139-157) to its pins;
 14. the FRI SNARK (fri_snark_prover / fri_snark_verifier) over edwards_Fr
     with BLAKE2b: security 128, RS extra 2, localization parameter 2, 10
     queries, 1 interactive repetition, four oracles, pow 0, tested degree
@@ -115,7 +118,9 @@ Phases (any failure exits non-zero and prints no result line):
     says how it was taken), ``call_ms`` one call between two events, host
     dispatch included; ``library_ms`` and ``library_call_ms`` time the
     PyTorch call of the same function (K13, K23's unpack and epilogue) the
-    same two ways; ``plain_ms`` is single-call.
+    same two ways; ``plain_ms`` is single-call; K17's rows carry
+    ``launches_per_transform``, the launches one call of the row's
+    transform adds to its count (checked equal to its plan's passes).
 Imports nothing of JAX or of the JAX package.
 """
 import argparse
@@ -123,6 +128,7 @@ import contextlib
 import gc
 import hashlib
 import json
+import math
 import os
 import secrets
 import subprocess
@@ -137,6 +143,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
 from libiop_tpu_torch import kernels  # noqa: E402
+from libiop_tpu_torch.bcs import common as bcs_common  # noqa: E402
 from libiop_tpu_torch.bcs.common import BCSTranscript  # noqa: E402
 from libiop_tpu_torch.fields import limbs  # noqa: E402
 from libiop_tpu_torch.fields.limbs import (lazy_sum_reduce_plain,  # noqa: E402
@@ -146,9 +153,10 @@ from libiop_tpu_torch.algebra import fft as alg_fft  # noqa: E402
 from libiop_tpu_torch.algebra import linearized as alg_linearized  # noqa: E402
 from libiop_tpu_torch.algebra import subspace  # noqa: E402
 from libiop_tpu_torch.fields import prime as prime_mod  # noqa: E402
+from libiop_tpu_torch.fields import binary as binary_mod  # noqa: E402
 from libiop_tpu_torch.fields.binary import gf64, gf192  # noqa: E402
 from libiop_tpu_torch.kernels.additive_fft import (  # noqa: E402
-    additive_fft, additive_fft_plain)
+    additive_fft, additive_fft_plain, additive_fft_plan)
 from libiop_tpu_torch.kernels.fri_fold_additive import (  # noqa: E402
     fri_fold_additive, fri_fold_additive_plain)
 from libiop_tpu_torch.kernels.gf2k_mul import (  # noqa: E402
@@ -160,6 +168,7 @@ from libiop_tpu_torch.kernels.linearized import (  # noqa: E402
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
 from libiop_tpu_torch.iop import runtime  # noqa: E402
 from libiop_tpu_torch.kernels import build  # noqa: E402
+from libiop_tpu_torch.kernels import blake2b as k3  # noqa: E402
 from libiop_tpu_torch.kernels import poseidon as k9  # noqa: E402
 from libiop_tpu_torch.kernels.batch_inv import (batch_inv,  # noqa: E402
                                                 batch_inv_plain)
@@ -766,6 +775,20 @@ def random_words(F, n, rng, dev):
                             .view(np.int32)).to(dev)
 
 
+def transform_launches(fn, m, W):
+    """K17 launches one call of ``fn`` (a transform over 2^m) makes, read
+    off LAUNCHES["additive_fft"]; fails unless they are the passes of
+    additive_fft_plan(m, W)."""
+    before = kernels.LAUNCHES["additive_fft"]
+    fn()
+    launches = kernels.LAUNCHES["additive_fft"] - before
+    planned = len(additive_fft_plan(m, W))
+    if launches != planned:
+        raise AssertionError(f"additive_fft at 2^{m}, W {W}: {launches} "
+                             f"launches, the plan has {planned} passes")
+    return launches
+
+
 #: log2 of the element count of phase 3's binary-field checks
 BINARY_LOG_N = 20
 
@@ -827,6 +850,8 @@ def check_binary_kernels(dev, rng):
             plain_ms=time_ms(lambda: additive_fft_plain(F, x, tw, sums, False),
                              reps=1, warmup=0),
             bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+            launches_per_transform=transform_launches(
+                lambda: additive_fft(F, x, tw, sums, False), m, W),
             shape=f"FFT of 2^{m} over a shifted subspace"))
 
         # K19: eta = 1 at a random point and at a domain element
@@ -1229,6 +1254,8 @@ _RECORDED = [
     (prime_mod, "batch_inv", "batch_inv", lambda F, a, c=None: a.numel()),
     (holographic_lincheck, "p_alpha_m", "p_alpha_m",
      lambda F, plans, p, r, inv, S: inv.numel()),
+    (fri, "fri_fold_additive", "fri_fold_additive",
+     lambda F, evals, elems, offsets, x, zv_x, eps_inv, c: evals.numel()),
     (subspace, "_k17", "additive_fft_batched",
      lambda F, S, tw, sums, inverse=False: S.numel() if S.ndim == 3 else -1),
     (sparse, "ell_matvec", "ell_matvec",
@@ -1245,14 +1272,33 @@ _RECORDED = [
     (k23, "epilogue", "four_step_epilogue", lambda F, g, C: g.numel())]
 
 
+def _blake2b_shape(words, msg_bytes, digest_bytes, tag, out=None):
+    return words.shape[0], words.shape[1], msg_bytes, digest_bytes, tag
+
+
+def _powers_shape(F, x, n, start=None):
+    return n, start is not None
+
+
 #: wrappers whose calls are counted by shape: (module, name, record key,
 #: the shape of a call); record[key][shape] = [calls, the first call's
 #: args].  K17's transforms are thousands of small calls on the binary
-#: paths: its most frequent shape is a row of its own
+#: paths: its most frequent shape is a row of its own; so are K3's, K11's
+#: and K16's (check_frequent), whose other rows time a path's largest call
 _COUNTED = [
     (subspace, "_k17", "additive_fft_shapes",
      lambda F, S, tw, sums, inverse=False: (
-         S.shape[1] if S.ndim == 3 else 1, S.shape[-1], bool(inverse)))]
+         S.shape[1] if S.ndim == 3 else 1, S.shape[-1], bool(inverse))),
+    (bcs_common, "blake2b_rows", "blake2b_shapes", _blake2b_shape),
+    (k3, "blake2b_rows", "blake2b_shapes", _blake2b_shape),
+    (domains, "powers", "powers_shapes", _powers_shape),
+    (fri, "powers", "powers_shapes", _powers_shape),
+    (binary_mod, "gf2k_mul", "gf2k_shapes",
+     lambda F, a, b: ("mul", tuple(a.shape), tuple(b.shape))),
+    (binary_mod, "gf2k_square", "gf2k_shapes",
+     lambda F, a: ("square", tuple(a.shape), None)),
+    (binary_mod, "gf2k_inv", "gf2k_shapes",
+     lambda F, a: ("inv", tuple(a.shape), None))]
 
 
 @contextlib.contextmanager
@@ -1873,6 +1919,8 @@ def check_ligero_binary_recorded(F, calls):
         plain_ms=time_ms(lambda: additive_fft_plain(F, S, tw, sums, inverse),
                          reps=1, warmup=0),
         bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+        launches_per_transform=transform_launches(
+            lambda: additive_fft(F, S, tw, sums, inverse), m, W),
         shape=f"{'IFFT' if inverse else 'FFT'} of {R} rows of 2^{m}"))
     for row in rows:
         report(row)
@@ -1913,8 +1961,130 @@ def check_k17_frequent(F, calls):
                 lambda: additive_fft_plain(F, S, tw, sums, inverse)),
             bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
             calls_of_shape=count, calls_by_shape=by_shape,
+            launches_per_transform=transform_launches(
+                lambda: additive_fft(F, S, tw, sums, inverse), m, W),
             shape=f"{'IFFT' if inverse else 'FFT'} of {R} row(s) of 2^{m}, "
                   f"{count} calls on the gf192 paths (their most frequent)")
+        report(r)
+        rows.append(r)
+    return rows
+
+
+def check_k19_recorded(F, calls):
+    """Phase 13: K19 against its twin on the largest fold the GF(2^192)
+    paths made (its phase-3 row folds a random 2^20 codeword)."""
+    if "fri_fold_additive" not in calls:
+        raise AssertionError(f"{F.name}: no recorded call for "
+                             "fri_fold_additive")
+    _, args = calls["fri_fold_additive"]
+    _, v, elems, offs, x, zv_x, eps_inv, c = args
+    W, N = v.shape
+    eb, mo = elem_bytes(F), gf_mul_ops(W)
+    bms, by = bound_ms(eb * (2 * N + 2 * (N // c)),
+                       N * (gf_batch_inv_ops(W) + mo) + (N // c) * 2 * mo)
+    r = dict(
+        name="fri_fold_additive", route="cuda",
+        source="libiop_tpu_torch/csrc/fri_fold_additive.cu",
+        replaces="libiop_tpu/protocols/fri.py:240",
+        max_abs_err=max_abs_err(fri_fold_additive(*args),
+                                fri_fold_additive_plain(*args)),
+        **timing(lambda: fri_fold_additive(*args)),
+        plain_ms=time_ms(lambda: fri_fold_additive_plain(*args), reps=1,
+                         warmup=0),
+        bound_ms=bms, bound_by=by, library_ms=None, field=F.name,
+        shape=f"eta = {c.bit_length() - 1}, N = 2^{N.bit_length() - 1}, the "
+              "gf192 paths' largest fold")
+    report(r)
+    return [r]
+
+
+#: the size of a _COUNTED shape, by which ties of the top count are broken
+_SHAPE_SIZE = {
+    "blake2b_shapes": lambda k: k[0] * k[1],
+    "powers_shapes": lambda k: k[0],
+    "gf2k_shapes": lambda k: max(math.prod(k[1]), math.prod(k[2] or (1,)))}
+
+
+def _most_frequent(shapes, size):
+    """(shape, calls, first call's args) of the most frequent shape, ties
+    to the largest, and the ten most frequent shapes with their counts."""
+    ranked = sorted(shapes.items(), key=lambda kv: (-kv[1][0], str(kv[0])))
+    top = ranked[0][1][0]
+    shape, (count, args) = max((kv for kv in ranked if kv[1][0] == top),
+                               key=lambda kv: size(kv[0]))
+    return shape, count, args, {str(k): v[0] for k, v in ranked[:10]}
+
+
+def check_frequent(F, calls, keys):
+    """K3, K11 and K16 against their twins at the shape the paths over F
+    called them with most often (_COUNTED; ties to the largest), timed
+    device-only: each a row beside its largest-call row, so that the
+    redesign order rests on measured launches x gap."""
+    rows = []
+    W = F.L // 2 if F.kind != "additive" else F.W
+    eb = elem_bytes(F)
+    for key in keys:
+        if key not in calls:
+            raise AssertionError(f"{F.name}: no counted call for {key}")
+        shape, count, args, by_shape = _most_frequent(
+            calls[key], _SHAPE_SIZE[key])
+        if key == "blake2b_shapes":
+            words, msg, db, tag = args[:4]
+            n = words.shape[0]
+            kernel = lambda: blake2b_rows(words, msg, db, tag)  # noqa: E731
+            plain = lambda: blake2b_rows_plain(words, msg, db, tag)  # noqa
+            nbytes = n * (msg + db)
+            nops = n * -(-(msg + 1) // 128) * BLAKE2B_BLOCK_OPS
+            name, source, replaces = ("blake2b_rows",
+                                      "libiop_tpu_torch/csrc/blake2b.cu",
+                                      "libiop_tpu/bcs/device_blake2b.py:198")
+            what = f"{n} rows of {msg} B -> {db} B (tag {tag})"
+        elif key == "powers_shapes":
+            _, x, n, *start = args
+            start = start[0] if start else None
+            binary = F.kind == "additive"
+            twin = powers_gf2_plain if binary else powers_plain
+            kernel = lambda: powers(F, x, n, start)  # noqa: E731
+            plain = lambda: twin(F, x, n, start)  # noqa: E731
+            nbytes = eb * (n + 2)
+            nops = n * (gf_mul_ops(W) if binary else mont_ops(F))
+            name = "powers_gf2" if binary else "powers"
+            source, replaces = ("libiop_tpu_torch/csrc/powers.cu",
+                                "libiop_tpu/algebra/domains.py:80")
+            what = f"table of {n}" + (" from a start" if start is not None
+                                      else "")
+        else:
+            op = shape[0]
+            a = args[1]
+            if op == "mul":
+                b = args[2]
+                kernel = lambda: gf2k_mul(F, a, b)  # noqa: E731
+                plain = lambda: gf2k_mul_plain(F, a, b)  # noqa: E731
+                n = math.prod(torch.broadcast_shapes(a.shape[1:],
+                                                     b.shape[1:]))
+                nbytes = eb * (a[0].numel() + b[0].numel() + n)
+                nops = n * gf_mul_ops(W)
+            else:
+                fn, twin, per = ((gf2k_square, gf2k_square_plain,
+                                  gf_square_ops(W)) if op == "square" else
+                                 (gf2k_inv, gf2k_inv_plain,
+                                  gf_batch_inv_ops(W)))
+                kernel = lambda: fn(F, a)  # noqa: E731
+                plain = lambda: twin(F, a)  # noqa: E731
+                n = a[0].numel()
+                nbytes, nops = eb * 2 * n, n * per
+            name, source, replaces = ("gf2k_mul",
+                                      "libiop_tpu_torch/csrc/gf2k_mul.cu",
+                                      "libiop_tpu/fields/binary.py:249")
+            what = f"{op} {shape[1]}" + (f" x {shape[2]}" if shape[2]
+                                         else "")
+        bms, by = bound_ms(nbytes, nops)
+        r = dict(name=name, route="cuda", source=source, replaces=replaces,
+                 max_abs_err=max_abs_err(kernel(), plain()), **timing(kernel),
+                 plain_ms=time_ms(plain, reps=1, warmup=0), bound_ms=bms,
+                 bound_by=by, library_ms=None, field=F.name,
+                 calls_of_shape=count, calls_by_shape=by_shape,
+                 shape=f"{what}, {count} calls (the paths' most frequent)")
         report(r)
         rows.append(r)
     return rows
@@ -2839,6 +3009,8 @@ def main():
         launched = {k for p in field_paths[Fx.name]
                     for k, c in paths[p].items() if c > 0}
         rows += check_recorded(Fx, calls[Fx.name], launched)
+    rows += check_frequent(F, calls[F.name], ("blake2b_shapes",
+                                              "powers_shapes"))
 
     log(f"phase 9: Aurora over GF(2^192) at 2^{args.log_n} constraints")
     paths["aurora_gf192"], _, _ = main_path(
@@ -2893,6 +3065,9 @@ def main():
     for Fx in (Fg, Fl):
         rows += check_gf2_recorded(Fx, calls[Fx.name])
     rows += check_k17_frequent(Fg, calls[Fg.name])
+    rows += check_k19_recorded(Fg, calls[Fg.name])
+    rows += check_frequent(Fg, calls[Fg.name], ("gf2k_shapes",
+                                                "powers_shapes"))
     ldt_calls = (calls[F.name]["ldt_combine"], calls[Fl.name]["ldt_combine"])
     del calls
 

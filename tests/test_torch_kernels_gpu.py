@@ -464,28 +464,38 @@ def test_gf2k_mul_square_inv_match_twins(dev):
 
 
 def test_additive_fft_matches_twin(dev):
-    """K17 forward and inverse over shifted subspaces of 2 to 2^12 points
-    and a random basis, gf64 and gf192; the inverse undoes the forward."""
-    for name in ("gf64", "gf192"):
+    """K17 forward and inverse over every binary width: shifted subspaces
+    of every size 2^1 .. 2^20 (one pass up to 2^8, then column, tile,
+    class and final passes, blocks of 2^8 to 2^13), three rows at each
+    change of the plan, and a random basis; each transform launches
+    exactly the passes of its plan; the inverse undoes the forward."""
+    from libiop_tpu_torch.kernels.additive_fft import additive_fft_plan
+    for name in BINARY:
         Fb = getattr(binary, name)()
         rng = np.random.default_rng(7)
         doms = [subspace.AffineSubspace(Fb, m, shift=1 << m)
-                for m in (1, 2, 5, 12)]
+                for m in range(1, 21)]
         doms.append(subspace.AffineSubspace(
             Fb, 6, shift=Fb.random_ints(1, rng)[0],
             basis=Fb.random_ints(6, rng)))
         for D in doms:
-            x = _gf_elems(Fb, (D.order,), D.dim, dev)
-            for inverse in (False, True):
-                tw, sums = subspace.fft_tables(D, dev, inverse)
-                before = LAUNCHES["additive_fft"]
-                got = additive_fft(Fb, x, tw, sums, inverse)
-                torch.cuda.synchronize()
-                assert LAUNCHES["additive_fft"] > before
-                assert torch.equal(got, additive_fft_plain(
-                    Fb, x, tw, sums, inverse)), (name, D.dim, inverse)
-            assert torch.equal(subspace.additive_ifft(
-                subspace.additive_fft(x, D), D), x), (name, D.dim)
+            m = D.dim
+            for rows in (1, 3) if m in (7, 8, 9, 15, 16, 17, 18, 19) else (1,):
+                x = _gf_elems(Fb, (rows, D.order) if rows > 1 else
+                              (D.order,), m + rows, dev)
+                for inverse in (False, True):
+                    tw, sums = subspace.fft_tables(D, dev, inverse)
+                    before = LAUNCHES["additive_fft"]
+                    got = additive_fft(Fb, x, tw, sums, inverse)
+                    torch.cuda.synchronize()
+                    assert LAUNCHES["additive_fft"] - before == len(
+                        additive_fft_plan(m, Fb.W)), (name, m, rows)
+                    assert torch.equal(got, additive_fft_plain(
+                        Fb, x, tw, sums, inverse)), (name, m, rows, inverse)
+            if m <= 12:
+                x = _gf_elems(Fb, (D.order,), m, dev)
+                assert torch.equal(subspace.additive_ifft(
+                    subspace.additive_fft(x, D), D), x), (name, m)
 
 
 def test_linearized_matches_twin(dev, monkeypatch):
@@ -531,24 +541,32 @@ def test_linearized_matches_twin(dev, monkeypatch):
 
 
 def test_fri_fold_additive_matches_twin(dev):
-    """K19 at eta 1, 2 and 3 over a shifted 2^10, at a random point and at
-    a domain element."""
+    """K19's block batch inversion over every binary width: one partial
+    block (2^3 positions), a shifted 2^10 and several blocks (2^13), eta
+    1, 2 and 3, at points outside the domain and at domain elements in
+    the first and the last block (a zero difference enters the block
+    product as 1); one launch a fold."""
     from libiop_tpu_torch.protocols import fri
-    for name in ("gf64", "gf192"):
+    for name in BINARY:
         Fb = getattr(binary, name)()
-        D = subspace.AffineSubspace(Fb, 10, shift=1 << 10)
-        v = _gf_elems(Fb, (D.order,), 3, dev)
-        for eta in (1, 2, 3):
-            Z = fri.localizer_vanishing(D, eta)
-            offs = fri.coset_vanishing_offsets(D, eta, Z, dev)
-            for x in (Fb.random_ints(1, np.random.default_rng(eta))[0],
-                      D.element_by_index_int(77)):
-                args = (Fb, v, D.elements(dev), offs, x,
-                        Z.eval_at_point_int(x), Fb.inv_int(Z.epsilon),
-                        1 << eta)
-                assert torch.equal(fri_fold_additive(*args),
-                                   fri_fold_additive_plain(*args)), \
-                    (name, eta, x)
+        for dim in (3, 10, 13):
+            D = subspace.AffineSubspace(Fb, dim, shift=1 << dim)
+            v = _gf_elems(Fb, (D.order,), dim, dev)
+            for eta in (1, 2, 3):
+                Z = fri.localizer_vanishing(D, eta)
+                offs = fri.coset_vanishing_offsets(D, eta, Z, dev)
+                for x in (Fb.random_ints(1, np.random.default_rng(eta))[0],
+                          D.element_by_index_int(1),
+                          D.element_by_index_int(D.order - 2)):
+                    args = (Fb, v, D.elements(dev), offs, x,
+                            Z.eval_at_point_int(x), Fb.inv_int(Z.epsilon),
+                            1 << eta)
+                    before = LAUNCHES["fri_fold_additive"]
+                    got = fri_fold_additive(*args)
+                    torch.cuda.synchronize()
+                    assert LAUNCHES["fri_fold_additive"] == before + 1
+                    assert torch.equal(got, fri_fold_additive_plain(*args)), \
+                        (name, dim, eta, x)
 
 
 def test_fused_dag_binary_matches_twin(dev):
@@ -987,3 +1005,4 @@ def test_ldt_combine_matches_twin(dev):
         assert LAUNCHES[key] == before + 1, Fx.name
         assert torch.equal(got, ldt_combine_plain(Fx, inputs, coeffs, sub,
                                                   tables)), Fx.name
+

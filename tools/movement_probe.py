@@ -22,7 +22,6 @@ array, host clock.  Prints one ``RESULT`` JSON line.
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -35,26 +34,11 @@ import torch  # noqa: E402
 
 from libiop_tpu_torch.algebra import generic  # noqa: E402
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
-from libiop_tpu_torch.kernels import LAUNCHES, build  # noqa: E402
+from libiop_tpu_torch.kernels import LAUNCHES  # noqa: E402
 from libiop_tpu_torch.kernels import four_step as k23  # noqa: E402
 from libiop_tpu_torch.kernels import place_columns as k13  # noqa: E402
 from tools.device_timing import cupti_ms, device_ms, time_ms  # noqa: E402
-
-
-def build_two():
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    procs = [(stem, subprocess.Popen(
-        [build._nvcc(), "-Xptxas=-v", *build.NVCC_FLAGS, "-I",
-         build.CSRC_DIR, "-o", os.path.join(build.BUILD_DIR, stem + ".so"),
-         os.path.join(build.CSRC_DIR, stem + ".cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-        for stem in ("place_columns", "four_step")]
-    for stem, proc in procs:
-        out = proc.communicate()[0].decode(errors="replace")
-        print(stem, "\n".join(line for line in out.splitlines()
-                              if "registers" in line or "error" in line))
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {stem}.cu:\n{out}")
+from tools.probe_common import build_sources  # noqa: E402
 
 
 def host_bound_ms(fn, n=200):
@@ -85,7 +69,7 @@ def reindex(dim, sub, i):
 
 
 def main():
-    build_two()
+    build_sources(("place_columns", "four_step"))
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     n = 1 << 16

@@ -27,7 +27,6 @@ Prints one ``RESULT`` JSON line.
 import hashlib
 import json
 import os
-import subprocess
 import sys
 
 TREE = os.path.abspath(sys.argv[1])
@@ -42,36 +41,9 @@ from libiop_tpu_torch.algebra.domains import MultiplicativeCoset  # noqa: E402
 from libiop_tpu_torch.algebra.generic import linearized_vanishing  # noqa: E402
 from libiop_tpu_torch.fields.binary import gf64, gf192  # noqa: E402
 from libiop_tpu_torch.fields.prime import alt_bn128_fr, edwards_fr  # noqa: E402
-from libiop_tpu_torch.kernels import LAUNCHES, build  # noqa: E402
 from libiop_tpu_torch.kernels import linearized as k18  # noqa: E402
 from libiop_tpu_torch.kernels import ntt as k2  # noqa: E402
-from tools.device_timing import device_ms, time_ms  # noqa: E402
-
-
-def build_two():
-    os.makedirs(build.BUILD_DIR, exist_ok=True)
-    procs = [(stem, subprocess.Popen(
-        [build._nvcc(), "-Xptxas=-v", *build.NVCC_FLAGS, "-I",
-         build.CSRC_DIR, "-o", os.path.join(build.BUILD_DIR, stem + ".so"),
-         os.path.join(build.CSRC_DIR, stem + ".cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
-        for stem in ("ntt", "linearized")]
-    for stem, proc in procs:
-        out = proc.communicate()[0].decode(errors="replace")
-        print(stem, "\n".join(line for line in out.splitlines()
-                              if "registers" in line or "error" in line))
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed on {stem}.cu:\n{out}")
-
-
-def times(fn, key):
-    before = LAUNCHES[key]
-    fn()
-    torch.cuda.synchronize()
-    launches = LAUNCHES[key] - before
-    ms, how = device_ms(fn)
-    return {"dev": ms, "dev_by": how, "call": time_ms(fn),
-            "launches": launches}
+from tools.probe_common import build_sources, launch_times  # noqa: E402
 
 
 def stages_plain(F, x, W, first_m):
@@ -98,7 +70,7 @@ def probe_ntt(res, rng, dev):
                 assert torch.equal(
                     fft._butterfly_stages(F, x, W, N, first_m), want)
                 res[f"k2_{F.L}_{rows}x2^{log_n}_from{first_m}"
-                    + (f"_tile{tile}" if tile else "")] = times(
+                    + (f"_tile{tile}" if tile else "")] = launch_times(
                     lambda: fft._butterfly_stages(F, x, W, N, first_m),
                     "ntt_stage")
                 if tile:
@@ -126,7 +98,8 @@ def probe_divide(res, rng, dev):
                 res[f"k18_{F.name}_sha256"] = hashlib.sha256(
                     got.cpu().numpy().tobytes()).hexdigest()
             assert torch.equal(got, want)
-            res[f"k18_{F.name}_d{d}_h16" + (f"_B{B}" if B else "")] = times(
+            key = f"k18_{F.name}_d{d}_h16" + (f"_B{B}" if B else "")
+            res[key] = launch_times(
                 lambda: k18.linearized_divide(F, f, terms, H.order),
                 "linearized")
             if B:
@@ -134,7 +107,7 @@ def probe_divide(res, rng, dev):
 
 
 def main():
-    build_two()
+    build_sources(("ntt", "linearized"))
     dev = torch.device("cuda")
     rng = np.random.default_rng(5)
     res = {"tree": TREE, "device": torch.cuda.get_device_name(0)}
